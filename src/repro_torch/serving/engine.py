@@ -1,0 +1,470 @@
+"""Live serving engine: runs real PyTorch models as microservice graphs.
+
+The port of ``repro/serving/engine.py`` (threads backend).  It is driven by
+the shared scheduling core (``repro_torch.core.exec.ExecCore``): the engine
+consumes an ``Allocation`` + ``Placement`` and runs N_i concurrent
+instances per node on a thread pool — which overlaps work because each
+stage waits for its own CUDA event, and that wait releases the GIL — with
+QoS-aware dynamic batching and per-edge communication-mechanism selection
+(``CommModel.crossover_bytes``, paper Fig. 11): ``DeviceHandoff`` passes the
+stage-output CUDA tensor by reference (global-memory mechanism, §VI-B);
+``HostStagedChannel`` forces the device -> host -> device round trip
+(§VI-A).
+
+Topology is a ``ServiceGraph`` (``graph=``; default: the linear chain over
+the given stage servers).  Fan-out sends one payload per out-edge; fan-in
+waits on the core's join barrier and feeds the consumer a deterministic,
+branch-order-independent combination of the predecessor outputs.
+
+Only ``backend="threads"`` is ported; the worker-process backend with CUDA
+IPC hand-off is a later item of ROADMAP.md (Queue A, process backend).
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ModelConfig, get_config
+from repro_torch.core.comm import CommModel, EdgeChannel
+from repro_torch.core.exec import (BatchingPolicy, ExecCore, ReadyBatch,
+                                   StageInstance, default_allocation)
+from repro_torch.core.qos import QoSTracker
+from repro_torch.core.types import RTX_2080TI, Allocation, ServiceGraph
+from repro_torch.models import Transformer, from_jax_params
+from repro_torch.models.common import resolve_device
+
+PROCESSES_NOT_PORTED = (
+    "backend='processes' is not ported yet: it is ROADMAP.md Queue A "
+    "item 2, 'Process backend over CUDA IPC' (spawned workers with CUDA "
+    "IPC hand-off); use backend='threads'")
+
+
+@dataclass
+class Query:
+    qid: int
+    arrival: float
+    tokens: np.ndarray                  # (S,) int32
+    done: Optional[float] = None
+
+
+class ModelStageServer:
+    """One microservice stage: a model served via prefill scoring.
+
+    The stage consumes a (B, seq_len) int32 token batch and emits the
+    (B,) int32 next-token ids (argmax of the last-token logits).
+    ``process`` is thread-safe: several instances of one stage may run
+    concurrently against the same (read-only) parameters.
+
+    ``reduced=False`` serves the published width and depth;
+    ``device=None`` means the card (raising without one); ``params``
+    injects the reference's parameter tree, numpy leaves
+    (``models.from_jax_params``), in place of the seeded init.
+    """
+
+    def __init__(self, name: str, arch: str, seq_len: int = 32,
+                 seed: int = 0, *, reduced: bool = False, device=None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 params: Optional[Mapping] = None):
+        self.name = name
+        self._arch = arch
+        self._seed = seed
+        self._reduced = reduced
+        self._params = params
+        self.seq_len = seq_len
+        self.cfg: ModelConfig = get_config(arch, reduced=reduced)
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        if params is not None:
+            self.model = from_jax_params(params, self.cfg,
+                                         device=self.device, dtype=dtype)
+        else:
+            self.model = Transformer(self.cfg, device=self.device,
+                                     dtype=dtype, seed=seed)
+        self._stats_lock = threading.Lock()
+        self.calls = 0
+        self.busy_time = 0.0
+
+    def __reduce__(self):
+        """Rebuild from the construction arguments: the seeded init (or the
+        injected parameters) reproduces the same model."""
+        return (_rebuild_stage,
+                (self.name, self._arch, self.seq_len, self._seed,
+                 dict(reduced=self._reduced, device=str(self.device),
+                      dtype=self.dtype, params=self._params)))
+
+    def _run(self, tokens: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            logits, _ = self.model.serve_prefill(tokens)
+            out = torch.argmax(logits, dim=-1).to(torch.int32)
+            if out.is_cuda:
+                # wait for this stage's own work only (releases the GIL)
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+        return out
+
+    def warmup(self, batch: int):
+        self._run(torch.zeros(batch, self.seq_len, dtype=torch.int32,
+                              device=self.device))
+
+    def process(self, tokens: torch.Tensor) -> torch.Tensor:
+        t0 = time.perf_counter()
+        out = self._run(tokens)
+        dt = time.perf_counter() - t0
+        with self._stats_lock:
+            self.busy_time += dt
+            self.calls += 1
+        return out
+
+    def profile_stage_timings(self, batches: Sequence[int] = (1, 2, 4, 8),
+                              repeats: int = 3) -> List[tuple]:
+        """Measured (batch, seconds) pairs of one ``process`` call."""
+        out = []
+        for b in batches:
+            self.warmup(b)
+            t = torch.zeros(b, self.seq_len, dtype=torch.int32,
+                            device=self.device)
+            ts = []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                self._run(t)
+                ts.append(time.perf_counter() - t0)
+            out.append((b, float(np.median(ts))))
+        return out
+
+
+def _rebuild_stage(name, arch, seq_len, seed, kw) -> ModelStageServer:
+    return ModelStageServer(name, arch, seq_len, seed, **kw)
+
+
+@dataclass
+class ServeStats:
+    qos: QoSTracker
+    comm_time: float = 0.0
+    compute_time: float = 0.0
+    batches: int = 0
+    failed: int = 0                    # queries lost to a stage exception
+
+    def summary(self) -> dict:
+        return {
+            "p99": self.qos.tail_latency(),
+            "mean": self.qos.mean(),
+            "completed": self.qos.count(),
+            "comm_time": self.comm_time,
+            "compute_time": self.compute_time,
+            "comm_frac": self.comm_time
+                         / max(self.comm_time + self.compute_time, 1e-12),
+            "failed": self.failed,
+        }
+
+
+class _EdgeChannels(dict):
+    """Per-edge live channels, addressable by ``(src, dst)`` or by position
+    in the graph's edge list (``channels[0]`` is the first edge)."""
+
+    def __init__(self, graph: ServiceGraph, comm: CommModel,
+                 force: Optional[str]):
+        super().__init__()
+        self._order = [(e.src, e.dst) for e in graph.edges]
+        for key in self._order:
+            self[key] = EdgeChannel(comm, force=force)
+
+    def __getitem__(self, key):
+        if isinstance(key, int):
+            key = self._order[key]
+        return dict.__getitem__(self, key)
+
+
+class PipelineEngine:
+    """Executes a service graph of stage servers over a query trace: the
+    one-tenant delegation into ``MultiTenantEngine``.
+
+    ``graph`` gives the topology (node i is served by ``stages[i]``);
+    omitted, the stages form the linear chain of the paper.
+    ``allocation`` (placed) decides how many concurrent instances each
+    node runs; omitted, one instance per node.  ``comm_mechanism``: "auto"
+    routes each edge payload via the crossover rule; "device"/"host" pin
+    the mechanism for A/B comparisons.
+    """
+
+    def __init__(self, stages: Sequence, comm_mechanism: str = "auto",
+                 qos_target: float = 2.0, batch_size: int = 4,
+                 batch_timeout: float = 0.2,
+                 allocation: Optional[Allocation] = None,
+                 comm_model: Optional[CommModel] = None,
+                 graph: Optional[ServiceGraph] = None,
+                 backend: str = "threads"):
+        self.stages = list(stages)
+        if graph is None:
+            graph = ServiceGraph.chain(
+                "engine", [None] * len(self.stages), qos_target=qos_target)
+        if graph.n_nodes != len(self.stages):
+            raise ValueError("graph nodes and stage servers must correspond "
+                             "1:1")
+        self.graph = graph
+        self.comm_mechanism = comm_mechanism
+        self.qos_target = qos_target
+        self.batch_timeout = batch_timeout
+        self.comm_model = comm_model or CommModel(RTX_2080TI)
+        if allocation is None:
+            allocation = default_allocation(len(self.stages), batch_size)
+        self._inner = MultiTenantEngine(
+            [self.stages], [graph], [allocation],
+            comm_mechanism=comm_mechanism, batch_timeout=batch_timeout,
+            comm_model=self.comm_model, qos_targets=[qos_target],
+            backend=backend)
+        self.channels = self._inner.tenants[0].channels
+
+    def close(self) -> None:
+        self._inner.close()
+
+    def __enter__(self) -> "PipelineEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    @property
+    def alloc(self) -> Allocation:
+        return self._inner.tenants[0].alloc
+
+    @property
+    def batch_size(self) -> int:
+        return self._inner.tenants[0].batch_size
+
+    def run_trace(self, queries: List[Query]) -> ServeStats:
+        """Replay: queries arrive per their timestamps; the core forms
+        batches on size/timeout and dispatches them to free stage
+        instances; wall-clock latencies are recorded."""
+        return self._inner.run_traces([queries])[0]
+
+
+def make_trace(n: int, qps: float, seq_len: int, vocab: int,
+               seed: int = 0) -> List[Query]:
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.exponential(1.0 / qps, n))
+    return [Query(qid=i, arrival=float(t[i]),
+                  tokens=rng.integers(0, vocab, seq_len).astype(np.int32))
+            for i in range(n)]
+
+
+def _stack_tokens(tokens_list: List[np.ndarray], batch_size: int,
+                  device) -> torch.Tensor:
+    """Pad a partial batch to the stage's fixed batch size with zero rows
+    and copy it to ``device`` (the H2D copy of the batch's tokens)."""
+    stacked = np.stack(tokens_list)
+    if len(tokens_list) < batch_size:
+        pad = np.zeros((batch_size - len(tokens_list),) + stacked.shape[1:],
+                       stacked.dtype)
+        stacked = np.concatenate([stacked, pad])
+    return torch.from_numpy(stacked).to(device)
+
+
+def _fanin_combine(stages: Sequence, node: int,
+                   inputs: Dict[int, torch.Tensor]) -> torch.Tensor:
+    """Consumer input from the joined predecessor outputs: the branch token
+    ids are summed in predecessor-id order (independent of branch
+    completion order), reduced ``% vocab`` and tiled to the consumer's
+    ``seq_len`` — for a single predecessor this is the chain contract."""
+    nxt = stages[node]
+    arrs = [inputs[p] for p in sorted(inputs)]
+    handed = arrs[0]
+    for a in arrs[1:]:
+        handed = handed + a
+    vocab = getattr(nxt, "vocab_size", None)
+    if vocab is None:
+        vocab = nxt.cfg.vocab_size
+    return (handed[:, None] % vocab).repeat(1, nxt.seq_len)
+
+
+# --------------------------------------------------------------------------
+# Multi-tenant live serving: N services sharing one worker pool
+# --------------------------------------------------------------------------
+
+@dataclass
+class _TenantServe:
+    """Per-tenant serving context of a MultiTenantEngine."""
+    stages: List                       # one ModelStageServer per graph node
+    graph: ServiceGraph
+    alloc: Allocation
+    channels: _EdgeChannels
+    batch_size: int
+
+
+class MultiTenantEngine:
+    """N tenant service graphs co-served from ONE shared thread pool.
+
+    Each tenant gets its own ``ExecCore`` (admission, batching, ready
+    queues against its slice of the joint ``Placement``) and its own
+    per-edge channels; every dispatch lands in one ``ThreadPoolExecutor``
+    sized by the total placed instance count.
+
+    A stage that raises loses its batch: the queries are counted failed
+    and the batch is abandoned, so the trace still ends.  Retries,
+    deadlines and live allocation swaps are not ported yet (ROADMAP.md).
+    ``backend`` must be ``"threads"``; the process backend is not ported.
+    """
+
+    def __init__(self, tenant_stages: Sequence[Sequence],
+                 graphs: Sequence[ServiceGraph],
+                 allocations: Sequence[Allocation],
+                 comm_mechanism: str = "auto", batch_timeout: float = 0.05,
+                 comm_model: Optional[CommModel] = None,
+                 qos_targets: Optional[Sequence[float]] = None,
+                 backend: str = "threads"):
+        if backend == "processes":
+            raise NotImplementedError(PROCESSES_NOT_PORTED)
+        if backend != "threads":
+            raise ValueError(f"unknown backend {backend!r}")
+        if comm_mechanism not in ("auto", "device", "host"):
+            raise ValueError(f"comm_mechanism {comm_mechanism!r}")
+        if not len(tenant_stages) == len(graphs) == len(allocations):
+            raise ValueError("need stages, graph and allocation per tenant")
+        self.comm_model = comm_model or CommModel(RTX_2080TI)
+        force = None if comm_mechanism == "auto" else comm_mechanism
+        self.tenants: List[_TenantServe] = []
+        for stages, g, alloc in zip(tenant_stages, graphs, allocations):
+            _check_allocation(alloc, g.n_nodes)
+            if g.n_nodes != len(stages):
+                raise ValueError("graph nodes and stage servers must "
+                                 "correspond 1:1")
+            self.tenants.append(_TenantServe(
+                stages=list(stages), graph=g, alloc=alloc,
+                channels=_EdgeChannels(g, self.comm_model, force),
+                batch_size=alloc.stages[0].batch))
+        if qos_targets is None:
+            qos_targets = [g.qos_target for g in graphs]
+        if len(qos_targets) != len(self.tenants):
+            raise ValueError("one QoS target per tenant")
+        self.qos_targets = [float(t) for t in qos_targets]
+        self.batch_timeout = batch_timeout
+        self.backend = backend
+        self.comm_mechanism = comm_mechanism
+
+    def close(self) -> None:
+        """Nothing outlives a trace on the threads backend."""
+
+    def __enter__(self) -> "MultiTenantEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # ---- trace replay --------------------------------------------------
+
+    def run_traces(self, traces: Sequence[List[Query]]) -> List[ServeStats]:
+        """Replay one query trace per tenant on the shared pool; returns
+        one ``ServeStats`` per tenant (each against its own QoS target)."""
+        if len(traces) != len(self.tenants):
+            raise ValueError("one trace per tenant")
+        stats = [ServeStats(qos=QoSTracker(qt)) for qt in self.qos_targets]
+        for t in self.tenants:
+            for st in t.stages:
+                st.warmup(t.batch_size)
+        cores = [ExecCore(t.graph, t.alloc.placement,
+                          BatchingPolicy(t.batch_size, self.batch_timeout),
+                          comm=self.comm_model)
+                 for t in self.tenants]
+        completions: queue.Queue = queue.Queue()
+        in_flight = 0
+        idx = [0] * len(self.tenants)
+        lens = [len(tr) for tr in traces]
+        start = time.perf_counter()
+        total_inst = sum(len(c.instances) for c in cores)
+        with ThreadPoolExecutor(max_workers=max(total_inst, 1)) as ex:
+            while any(i < n for i, n in zip(idx, lens)) or in_flight \
+                    or any(c.has_work() for c in cores):
+                now = time.perf_counter() - start
+                for ti, (t, core, tr) in enumerate(
+                        zip(self.tenants, cores, traces)):
+                    while idx[ti] < lens[ti] and \
+                            tr[idx[ti]].arrival <= now:
+                        core.admit(tr[idx[ti]], tr[idx[ti]].arrival)
+                        idx[ti] += 1
+                    for rb in core.form_batches(now):
+                        rb.data = _stack_tokens(
+                            [q.tokens for q in rb.items], t.batch_size,
+                            t.stages[rb.stage].device)
+                    for inst, rb in core.dispatch(now):
+                        in_flight += 1
+                        ex.submit(self._worker, ti, inst, rb, completions)
+                # sleep until the next event across ALL tenants
+                wake = [traces[ti][idx[ti]].arrival
+                        for ti in range(len(self.tenants))
+                        if idx[ti] < lens[ti]]
+                wake += [d for d in (c.batch_deadline() for c in cores)
+                         if d is not None]
+                timeout = (min(wake) - now) if wake else 0.05
+                timeout = min(max(timeout, 0.0005), 0.05)
+                try:
+                    ev = completions.get(timeout=timeout)
+                except queue.Empty:
+                    continue
+                while True:
+                    in_flight -= 1
+                    self._complete(ev, cores, stats, start)
+                    try:
+                        ev = completions.get_nowait()
+                    except queue.Empty:
+                        break
+        return stats
+
+    # ---- internals -----------------------------------------------------
+
+    def _worker(self, ti: int, inst: StageInstance, rb: ReadyBatch,
+                completions: queue.Queue) -> None:
+        """ONE stage execution; the outcome (output or exception) goes to
+        the driver."""
+        t0 = time.perf_counter()
+        try:
+            out, err = \
+                self.tenants[ti].stages[inst.stage].process(rb.data), None
+        except Exception as e:      # reported to the driver, never lost
+            out, err = None, e
+        completions.put((ti, inst, rb, out, time.perf_counter() - t0, err))
+
+    def _complete(self, ev, cores: List[ExecCore],
+                  stats: List[ServeStats], start: float) -> None:
+        ti, inst, rb, out, dt, err = ev
+        t = self.tenants[ti]
+        core = cores[ti]
+        core.release(inst, busy_for=dt)
+        if err is not None:
+            if rb.bid not in core._abandoned:
+                stats[ti].failed += len(rb.items)
+                core.abandon(rb.bid)
+            return
+        stats[ti].compute_time += dt
+        u = rb.stage
+        now = time.perf_counter() - start
+        succs = core.succs[u]
+        if succs:
+            for v in succs:
+                same = inst.device in core.consumer_devices(v)
+                t0 = time.perf_counter()
+                handed = t.channels[(u, v)].send(out, same_device=same)
+                stats[ti].comm_time += time.perf_counter() - t0
+                joined = core.deliver(u, v, rb.bid, rb.items, now,
+                                      data=handed)
+                if joined is not None:
+                    joined.data = _fanin_combine(t.stages, v, joined.inputs)
+        elif core.complete_exit(rb.bid, u):
+            for q in rb.items:
+                q.done = now
+                stats[ti].qos.record(now - q.arrival)
+            stats[ti].batches += 1
+
+
+def _check_allocation(alloc: Allocation, n_nodes: int) -> None:
+    if alloc.placement is None:
+        raise ValueError("allocation must be placed")
+    if len(alloc.stages) != n_nodes:
+        raise ValueError(f"allocation has {len(alloc.stages)} stages for "
+                         f"{n_nodes} graph nodes")
