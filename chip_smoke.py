@@ -2,26 +2,37 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line:
+Phases, each printing one line per case:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. the build of the CUDA kernels (nvcc, sm_90a) and its seconds;
   3. every kernel against its plain PyTorch version on the card, at the
-     serving path's shapes and at ragged/odd ones (max error per case);
-  4. kernel, plain and library (``scaled_dot_product_attention``) times at
-     the path's prefill (S=2048) and serving (S=16) shapes, beside the
-     bound of the card;
-  5. full-width prefill of qwen3-0.6b and qwen1.5-0.5b (B=4, S=2048): finite
-     logits, one kernel launch per layer, argmax equal to the same model
-     with plain attention, and its device time by kernel (torch.profiler);
-  6. the two-stage pipeline qwen3-0.6b -> qwen1.5-0.5b served at full width
-     through ``PipelineEngine`` under each communication mechanism, after
-     one profiled call of each stage alone (wall time, device idle share);
-then a ``{"kernels": [...]}`` line (``launches``: the kernel launches of
-the served traces alone, counted from 0 just before them; the two timed
-prefills' count beside it), the ``nvidia-smi`` line again, and as
-the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
-so the script exits non-zero without that line.  It imports nothing of
-jax or of the JAX package.
+     serving path's shapes and at ragged/odd ones (max error per case; for
+     the mLSTM chunk kernel per output h, c, n, m, with zero and carried
+     state, a three-chunk carried sequence and padded-gate tails);
+  4. kernel, plain and library times at the paths' shapes, beside the
+     bound of the card: attention at the prefill (S=2048) and serving
+     (S=16) shapes against ``scaled_dot_product_attention``; the mLSTM
+     chunk at (B*H 16, L 16 and 256, hd 1024), which no single PyTorch
+     call computes;
+  5. full-width prefill of qwen3-0.6b and qwen1.5-0.5b (B=4, S=2048) and of
+     xlstm-1.3b (B=4, S=1024: four mLSTM chunks per layer): finite logits,
+     one kernel launch per attention layer and per mLSTM layer and chunk,
+     argmax equal to the same model with the plain op (xlstm-1.3b: in
+     fp32, and in bf16 every chunk held to the plain op on the path's own
+     inputs), and its device time by kernel (torch.profiler; xlstm-1.3b
+     profiled at S=256);
+  6. the paper's two chains served at full width through
+     ``PipelineEngine`` under each communication mechanism, after one
+     profiled call of a stage alone (wall time, device idle share):
+     qwen3-0.6b -> qwen1.5-0.5b, then text-to-img, xlstm-1.3b ->
+     qwen1.5-0.5b (``sim/workloads.py``);
+then a ``{"kernels": [...]}`` line (``launches``: each kernel's launches
+in the served traces alone, counted from 0 just before each chain and
+read just after; the timed prefills' counts beside them), the
+``nvidia-smi`` line again, and as the last line
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+script exits non-zero without that line.  It imports nothing of jax or of
+the JAX package.
 """
 from __future__ import annotations
 
@@ -51,7 +62,19 @@ ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # max |logit|; measured 0.0162 (qwen3-0.6b) and 0.0169 (qwen1.5-0.5b) on
 # an H100; a broken attention layer moves the last token's logits by O(1)
 LOGIT_REL_TOL = 3e-2
+# full-width xlstm-1.3b in fp32, kernel vs plain mLSTM: max |logit diff|
+# over max |logit|.  Kernel and plain differ by fp32 summation order
+# (~1e-6 of h), which the 48 layers amplify about a thousandfold (a 1e-6
+# nudge moved the logits by 9e-4 on a CPU run of the stack at d 256); a
+# broken mLSTM layer moves them by O(1)
+XLSTM_LOGIT_REL_TOL = 0.1
 ATTN_KERNEL = "flash_attention_kernel"     # the CUDA kernel's symbol
+MLSTM_KERNELS = ("mlstm_gates_kernel", "mlstm_state_kernel")  # its passes
+# mLSTM chunk, kernel vs plain (both fp32 from the same inputs): the repo's
+# tolerances for the Pallas kernel against its oracle (tests/test_kernels.py)
+# |diff| <= atol + rtol |ref| for h, c, n; m is a sum of log gates
+MLSTM_TOL = {"h": (2e-3, 2e-2), "c": (2e-3, 2e-2), "n": (2e-3, 2e-2),
+             "m": (1e-4, 1e-4)}
 
 
 def emit(obj) -> None:
@@ -199,6 +222,136 @@ def time_kernels(fa, peaks) -> list:
     return rows
 
 
+# mLSTM chunk cases: (B*H, L, hd, dtype, carried state?, chunks, padded
+# tail steps in the last chunk)
+MLSTM_CASES = [
+    # the serving path's chunk (S = 16) and the prefill's (S >= 256)
+    (16, 16, 1024, torch.bfloat16, False, 1, 0),
+    (16, 16, 1024, torch.bfloat16, True, 1, 0),
+    (16, 256, 1024, torch.bfloat16, False, 1, 0),
+    (16, 256, 1024, torch.bfloat16, True, 1, 0),
+    # a three-chunk carried sequence at full width
+    (16, 256, 1024, torch.bfloat16, False, 3, 0),
+    # padded-gate tails (i = -1e30, f = +30), as mlstm_mix pads
+    (16, 16, 1024, torch.bfloat16, False, 1, 5),
+    (4, 100, 64, torch.float32, True, 2, 37),
+    # ragged L and small head dims
+    (4, 1, 16, torch.float32, False, 3, 0),
+    (4, 7, 8, torch.float32, True, 3, 0),
+    (4, 100, 64, torch.float32, False, 3, 0),
+    (4, 100, 128, torch.float32, True, 1, 0),
+    (2, 64, 1024, torch.float32, True, 2, 0),
+]
+
+
+def mlstm_inputs(gen, bh, l, hd, dtype, pad=0):
+    """q, k (pre-scaled by hd^-0.5, as the model makes it), v in ``dtype``
+    and fp32 gates; the last ``pad`` steps carry the model's padding."""
+    q, k, v = (rand(gen, (bh, l, hd), torch.float32) for _ in range(3))
+    k = k / hd ** 0.5
+    i_raw = rand(gen, (bh, l), torch.float32)
+    f_raw = rand(gen, (bh, l), torch.float32) + 2.0
+    if pad:
+        for t in (q, k, v):
+            t[:, l - pad:] = 0.0
+        i_raw[:, l - pad:] = -1e30
+        f_raw[:, l - pad:] = 30.0
+    return q.to(dtype), k.to(dtype), v.to(dtype), i_raw, f_raw
+
+
+def mlstm_carry(ms, gen, bh, l, hd, dtype, carried: bool):
+    """The zero state (m = -1e30), or the state one random chunk leaves."""
+    zero = (torch.zeros(bh, hd, hd, device="cuda"),
+            torch.zeros(bh, hd, device="cuda"),
+            torch.full((bh,), -1e30, device="cuda"))
+    if not carried:
+        return zero
+    _, *state = ms.mlstm_chunk_plain(*mlstm_inputs(gen, bh, l, hd, dtype),
+                                     *zero)
+    return tuple(state)
+
+
+def check_mlstm(ms) -> float:
+    """The mLSTM chunk kernel against ``mlstm_chunk_plain``, the carry
+    threaded through each side; returns the largest error over h, c, n."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    for bh, l, hd, dtype, carried, chunks, pad in MLSTM_CASES:
+        kern = plain = mlstm_carry(ms, gen, bh, l, hd, dtype, carried)
+        errs = dict.fromkeys("hcnm", 0.0)
+        ok = True
+        for ci in range(chunks):
+            xs = mlstm_inputs(gen, bh, l, hd, dtype,
+                              pad if ci == chunks - 1 else 0)
+            h_k, *kern = ms.mlstm_chunk_step(*xs, *kern)
+            h_p, *plain = ms.mlstm_chunk_plain(*xs, *plain)
+            torch.cuda.synchronize()
+            for name, a, b in zip("hcnm", (h_k, *kern), (h_p, *plain)):
+                atol, rtol = MLSTM_TOL[name]
+                diff = (a - b).abs()
+                errs[name] = max(errs[name], diff.max().item())
+                ok &= a.shape == b.shape and a.dtype == torch.float32 \
+                    and bool((diff <= atol + rtol * b.abs()).all()) \
+                    and bool(torch.isfinite(a).all())
+        emit({"phase": "check_mlstm", "bh": bh, "l": l, "hd": hd,
+              "dtype": str(dtype).split(".")[-1], "carried": carried,
+              "chunks": chunks, "pad": pad,
+              **{f"max_abs_err_{n}": e for n, e in errs.items()},
+              "tol": MLSTM_TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"mLSTM kernel disagrees with plain: case "
+                                 f"{(bh, l, hd, dtype, carried, chunks, pad)}")
+        worst = max(worst, errs["h"], errs["c"], errs["n"])
+    return worst
+
+
+def kernel_device_ms(fn, names, launches: int) -> dict:
+    """Device ms per call of each kernel named in ``names`` (the passes of
+    one entry point) over ``launches`` profiled calls of ``fn``."""
+    _, kernels = device_profile(lambda: [fn() for _ in range(launches)])
+    return {n: sum(t for key, _, t in kernels if n in key) / launches
+            for n in names}
+
+
+def time_mlstm(ms, peaks) -> list:
+    """Kernel and plain times of the mLSTM chunk at the path's shapes
+    (B*H = 16 heads of 1024, L = 16 at serving and 256 in a long
+    prefill), bf16 q/k/v and a carried state, beside the bound."""
+    flops_rate, mem_rate = peaks
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bh, hd, dt = 16, 1024, torch.bfloat16
+    rows = []
+    for l in (16, 256):
+        xs = mlstm_inputs(gen, bh, l, hd, dt)
+        carry = mlstm_carry(ms, gen, bh, l, hd, dt, True)
+        iters = 50 if l == 16 else 20
+        t_ms = cuda_ms(lambda: ms.mlstm_chunk_step(*xs, *carry), iters)
+        plain_ms = cuda_ms(lambda: ms.mlstm_chunk_plain(*xs, *carry),
+                           max(iters // 4, 5))
+        by_pass = kernel_device_ms(
+            lambda: ms.mlstm_chunk_step(*xs, *carry), MLSTM_KERNELS, 10)
+        dev_ms = sum(by_pass.values())
+        # work these inputs need: the causal (t, j) pairs of q k^T and
+        # W v, the two (L, hd) x (hd, hd) products with C, the n terms
+        pairs = l * (l + 1) // 2
+        flops = bh * (4 * hd * pairs + 4 * l * hd * hd + 4 * l * hd)
+        # each input read once, each output written once
+        nbytes = sum(t.numel() * t.element_size() for t in (*xs, *carry))
+        nbytes += 4 * (bh * l * hd + bh * hd * hd + bh * hd + bh)
+        t_ops, t_bytes = flops / flops_rate, nbytes / mem_rate
+        row = {"bh": bh, "l": l, "hd": hd, "dtype": "bfloat16", "ms": t_ms,
+               "device_ms": dev_ms, "device_ms_by_pass": by_pass,
+               "plain_ms": plain_ms,
+               "library_ms": None, "flops": flops, "bytes": nbytes,
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        row["bound_share"] = row["bound_ms"] / t_ms
+        row["bound_share_device"] = row["bound_ms"] / dev_ms
+        emit({"phase": "time_mlstm", **row})
+        rows.append(row)
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phases 5-6: the port's main path
 # --------------------------------------------------------------------------
@@ -265,6 +418,116 @@ def prefill_full_width(fa, ops, Transformer, get_config) -> int:
     return total
 
 
+def checking_op(ms, ops, errs: dict):
+    """An mLSTM op for ``serve_prefill`` that runs the kernel and, on the
+    same inputs, the plain version; it keeps in ``errs`` the largest error
+    of each output over all calls and its worst ratio to the tolerance
+    (MLSTM_TOL), and hands the kernel's result on."""
+    def op(*args):
+        h_k, carry_k = ops.mlstm_chunk(*args)
+        h_p, carry_p = ops.mlstm_chunk_plain(*args)
+        for name, a, b in zip("hcnm", (h_k, *carry_k), (h_p, *carry_p)):
+            atol, rtol = MLSTM_TOL[name]
+            diff = (a - b).abs()
+            errs[name] = max(errs.get(name, 0.0), diff.max().item())
+            ratio = (diff / (atol + rtol * b.abs())).max().item()
+            errs["worst_ratio"] = max(errs.get("worst_ratio", 0.0), ratio)
+        return h_k, carry_k
+    return op
+
+
+def prefill_xlstm(ms, ops, Transformer, get_config) -> int:
+    """Full-width xlstm-1.3b at B = 4, S = 1024 (four mLSTM chunks per
+    layer, so the carry crosses chunks at full width); returns the mLSTM
+    kernel launches of the timed bf16 prefill.
+
+    In bf16 this randomly initialised 48-layer stack amplifies any
+    rounding difference until the logits decorrelate (a 1e-6 relative
+    nudge to the mLSTM outputs moves them by 66 % of max |logit| and
+    flips the argmax, in a CPU run of the same stack at d 256), so the
+    bf16 run is held to the plain op chunk by chunk, on the path's own
+    inputs; the whole-model argmax and logit comparison runs in fp32."""
+    cfg = get_config("xlstm-1.3b")
+    n_mlstm = cfg.block_pattern.count("mlstm") * cfg.num_superblocks
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, s, s_prof = 4, 1024, 256
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=3)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    errs: dict = {}
+    with torch.inference_mode():
+        model.serve_prefill(tokens)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms.LAUNCHES = 0                   # the timed prefill only
+        t0 = time.perf_counter()
+        logits, cache = model.serve_prefill(tokens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = ms.LAUNCHES
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        model.serve_prefill(tokens, mlstm=checking_op(ms, ops, errs))
+        plain, _ = model.serve_prefill(tokens, mlstm=ops.mlstm_chunk_plain)
+        # the sLSTM loop dispatches S x 6 x ~20 small ops from the host:
+        # the profile is taken at S = 256 (one chunk per layer)
+        device_ms, kernels = device_profile(
+            lambda: model.serve_prefill(tokens[:, :s_prof]))
+        torch.cuda.synchronize()
+    finite = bool(torch.isfinite(logits).all())
+    scale = plain.float().abs().max().item()
+    rel_bf16 = (logits.float() - plain.float()).abs().max().item() / scale
+    state_c_shape = list(cache.layers[0].c.shape)
+    mlstm_ms = sum(t for name, _, t in kernels
+                   if any(k in name for k in MLSTM_KERNELS))
+    del model, plain, cache
+    torch.cuda.empty_cache()
+
+    model = Transformer(cfg, device="cuda", dtype=torch.float32, seed=3)
+    with torch.inference_mode():
+        logits32, _ = model.serve_prefill(tokens)
+        plain32, _ = model.serve_prefill(tokens, mlstm=ops.mlstm_chunk_plain)
+        torch.cuda.synchronize()
+    ids, ids_plain = logits32.argmax(-1), plain32.argmax(-1)
+    same = bool((ids == ids_plain).all())
+    rel = (logits32 - plain32).abs().max().item() \
+        / plain32.abs().max().item()
+    emit({"phase": "prefill", "arch": cfg.name, "b": b, "s": s,
+          "layers": cfg.num_layers, "mlstm_layers": n_mlstm,
+          "init_s": init_s, "prefill_s": prefill_s, "launches": launches,
+          "peak_gb": peak_gb, "logits_shape": list(logits.shape),
+          "finite": finite, "chunk_errs_vs_plain": errs,
+          "max_rel_logit_diff_plain_bf16": rel_bf16,
+          "fp32_argmax_equal_plain": same,
+          "fp32_max_rel_logit_diff_plain": rel,
+          "state_c_shape": state_c_shape,
+          "profiled_s": s_prof, "device_ms": device_ms,
+          "mlstm_ms": mlstm_ms, "mlstm_share": mlstm_ms / device_ms,
+          "device_launches": sum(n for _, n, _ in kernels),
+          "top_device_kernels": kernels[:6]})
+    if logits.shape != (b, cfg.vocab_size) or not finite \
+            or not bool(torch.isfinite(logits32).all()):
+        raise AssertionError("xlstm-1.3b: bad logits")
+    if launches != n_mlstm * (s // 256):
+        raise AssertionError(f"xlstm-1.3b: {launches} mLSTM launches for "
+                             f"{n_mlstm} layers x {s // 256} chunks")
+    if not errs["worst_ratio"] <= 1.0:
+        raise AssertionError(f"xlstm-1.3b: a chunk of the bf16 path "
+                             f"disagrees with the plain op: {errs}")
+    if not same:
+        raise AssertionError(f"xlstm-1.3b fp32: argmax differs from the "
+                             f"plain-mLSTM run: {ids.tolist()} vs "
+                             f"{ids_plain.tolist()}")
+    if not rel <= XLSTM_LOGIT_REL_TOL:
+        raise AssertionError(f"xlstm-1.3b fp32: logits differ from the "
+                             f"plain-mLSTM run by {rel} of max |logit|")
+    del model, logits, logits32, plain32
+    torch.cuda.empty_cache()
+    return launches
+
+
 def build_allocation(n_stages: int, instances: int, batch: int):
     """Stage 0 gets ``instances`` concurrent instances, the rest one each,
     all on device 0; quotas floored onto the ``QUOTA_STEP`` lattice (as
@@ -324,45 +587,76 @@ def stage_breakdown(stage, batch: int) -> dict:
             "top_device_kernels": kernels[:4], "top_host_ops": host}
 
 
-def serve_pipeline(fa) -> int:
-    """Returns the kernel launches of the three served traces, counted
-    from 0 just before the first and read just after the last."""
-    from repro_torch.serving import ModelStageServer, PipelineEngine, \
-        make_trace
-    stages = [ModelStageServer("stage0", "qwen3-0.6b", seq_len=16, seed=0),
-              ModelStageServer("stage1", "qwen1.5-0.5b", seq_len=16, seed=1)]
-    per_batch = sum(st.cfg.num_layers for st in stages)
+def serve_chain(chain: str, stages, breakdown, kernels) -> dict:
+    """Serve ``stages`` as a chain: 32 queries at 40 qps (Poisson, seed 7),
+    batch 4, timeout 50 ms, stage 0 x 2 instances, under each mechanism.
+    ``kernels``: [(name, module, launches per batch through the chain)].
+    Returns each kernel's launches over the three traces, counted from 0
+    just before the first and read just after the last."""
+    from repro_torch.serving import PipelineEngine, make_trace
     alloc = build_allocation(len(stages), instances=2, batch=4)
-    for st in stages:
+    for st in breakdown:
         emit(stage_breakdown(st, batch=4))
-    fa.LAUNCHES = 0                       # the served traces only
+    for _, mod, _ in kernels:             # the served traces only
+        mod.LAUNCHES = 0
     for mech in ("host", "device", "auto"):
         trace = make_trace(32, qps=40.0, seq_len=16,
                            vocab=stages[0].cfg.vocab_size, seed=7)
-        before = fa.LAUNCHES
+        before = {name: mod.LAUNCHES for name, mod, _ in kernels}
         busy = [(st.busy_time, st.calls) for st in stages]
         with PipelineEngine(stages, comm_mechanism=mech, qos_target=1.0,
                             batch_timeout=0.05, allocation=alloc) as eng:
             stats = eng.run_trace(trace)
-        launches = fa.LAUNCHES - before
+        launches = {name: mod.LAUNCHES - before[name]
+                    for name, mod, _ in kernels}
         stage_ms = [(st.busy_time - b) / max(st.calls - c, 1) * 1e3
                     for st, (b, c) in zip(stages, busy)]
         s = stats.summary()
-        emit({"phase": "serve", "mechanism": mech, "queries": 32,
-              "qps": 40.0, "batch": 4, "stage0_instances": 2,
+        emit({"phase": "serve", "chain": chain, "mechanism": mech,
+              "queries": 32, "qps": 40.0, "batch": 4, "stage0_instances": 2,
               "p99_ms": s["p99"] * 1e3, "mean_ms": s["mean"] * 1e3,
               "completed": s["completed"], "failed": s["failed"],
               "batches": stats.batches, "comm_share": s["comm_frac"],
               "stage_ms_in_pipeline": stage_ms,
               "edge0_picks": eng.channels[0].picks, "launches": launches})
         if s["completed"] != 32 or s["failed"] != 0:
-            raise AssertionError(f"{mech}: completed {s['completed']}, "
-                                 f"failed {s['failed']}")
-        # each batch passes both stages once, plus one warm-up per stage
-        if launches != per_batch * (stats.batches + 1):
-            raise AssertionError(f"{mech}: {launches} kernel launches for "
-                                 f"{stats.batches} batches")
-    return fa.LAUNCHES
+            raise AssertionError(f"{chain} {mech}: completed "
+                                 f"{s['completed']}, failed {s['failed']}")
+        # each batch passes every stage once, plus one warm-up per stage
+        for name, _, per_batch in kernels:
+            if launches[name] != per_batch * (stats.batches + 1):
+                raise AssertionError(
+                    f"{chain} {mech}: {launches[name]} {name} launches for "
+                    f"{stats.batches} batches")
+    return {name: mod.LAUNCHES for name, mod, _ in kernels}
+
+
+def layers_of(stages, kind: str) -> int:
+    return sum(st.cfg.block_pattern.count(kind) * st.cfg.num_superblocks
+               for st in stages)
+
+
+def serve_pipelines(fa, ms) -> tuple:
+    """The two chains of the paper's services, one after the other; at
+    seq_len 16 each mLSTM layer runs one chunk per batch."""
+    from repro_torch.serving import ModelStageServer
+    stages = [ModelStageServer("stage0", "qwen3-0.6b", seq_len=16, seed=0),
+              ModelStageServer("stage1", "qwen1.5-0.5b", seq_len=16, seed=1)]
+    first = serve_chain(
+        "qwen3-0.6b->qwen1.5-0.5b", stages, stages,
+        [("flash_attention_bhsd", fa, layers_of(stages, "attn")),
+         ("mlstm_chunk_step", ms, 0)])
+    del stages
+    torch.cuda.empty_cache()
+    stages = [ModelStageServer("semantic-understanding", "xlstm-1.3b",
+                               seq_len=16, seed=3),
+              ModelStageServer("image-generation", "qwen1.5-0.5b",
+                               seq_len=16, seed=1)]
+    second = serve_chain(
+        "text-to-img", stages, stages[:1],
+        [("flash_attention_bhsd", fa, layers_of(stages, "attn")),
+         ("mlstm_chunk_step", ms, layers_of(stages, "mlstm"))])
+    return first, second
 
 
 def main() -> int:
@@ -373,6 +667,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mlstm_scan as ms
     from repro_torch.models import Transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -395,25 +690,46 @@ def main() -> int:
           "ptxas": ptxas})
 
     worst = check_kernels(fa)
+    worst_mlstm = check_mlstm(ms)
     timing = time_kernels(fa, peaks)
+    timing_mlstm = time_mlstm(ms, peaks)
 
-    # each path resets the count just before it runs and reads it just
-    # after: the full-width prefills, then the served traces (the main
-    # path, whose count is the kernels line's ``launches``)
+    # each path resets the counts just before it runs and reads them just
+    # after: the full-width prefills, then the served chains (the main
+    # path, whose counts are the kernels line's ``launches``)
     launches_prefill = prefill_full_width(fa, ops, Transformer, get_config)
-    launches_serve = serve_pipeline(fa)
+    launches_prefill_mlstm = prefill_xlstm(ms, ops, Transformer, get_config)
+    first, second = serve_pipelines(fa, ms)
 
     main_row = timing[0]
+    attn_serve = first["flash_attention_bhsd"] \
+        + second["flash_attention_bhsd"]
+    mlstm_row = timing_mlstm[0]           # the serving shape, L = 16
     emit({"kernels": [{
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:89",
-        "launches": launches_serve, "launches_serve": launches_serve,
+        "launches": attn_serve, "launches_serve": attn_serve,
+        "launches_serve_chain": first["flash_attention_bhsd"],
+        "launches_serve_text_to_img": second["flash_attention_bhsd"],
         "launches_prefill": launches_prefill, "max_abs_err": worst,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "per_shape": timing}]})
+        "per_shape": timing}, {
+        "name": "mlstm_chunk_step", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+        "replaces": "src/repro/kernels/mlstm_scan.py:78",
+        "launches": second["mlstm_chunk_step"],
+        "launches_serve_chain": first["mlstm_chunk_step"],
+        "launches_prefill": launches_prefill_mlstm,
+        "max_abs_err": worst_mlstm,
+        "ms": mlstm_row["ms"], "plain_ms": mlstm_row["plain_ms"],
+        "bound_ms": mlstm_row["bound_ms"],
+        "bound_by": mlstm_row["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes a chunkwise "
+                        "mLSTM step",
+        "per_shape": timing_mlstm}]})
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

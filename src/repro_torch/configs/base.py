@@ -14,7 +14,8 @@ from dataclasses import dataclass, replace
 from typing import Callable, Optional, Sequence
 
 
-# Block kinds (the port's models implement ATTN with a dense MLP)
+# Block kinds (the port's models implement ATTN with a dense MLP, and MLSTM
+# and SLSTM with none)
 ATTN = "attn"          # (causal or bidirectional) self-attention block
 CROSS = "cross"        # decoder block with self + cross attention (enc-dec)
 MAMBA = "mamba"        # Mamba selective-SSM block
@@ -126,6 +127,7 @@ _REDUCERS: dict[str, Callable[[ModelConfig], ModelConfig]] = {}
 _MODULES = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "qwen3-0.6b": "qwen3_0p6b",
+    "xlstm-1.3b": "xlstm_1p3b",
 }
 ARCH_IDS = tuple(_MODULES)
 

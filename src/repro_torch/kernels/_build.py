@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use and load them.
 
 All ``kernels/csrc/*.cu`` sources compile into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds):
+plain C interface (no PyTorch headers, so a build takes seconds).  One
+``nvcc`` per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas=-v -o <build>/libreprotorch_<hash>.so *.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas=-v -c <src>.cu -o <src>.o     (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o <build>/libreprotorch_<hash>.so *.o
 
 The library lands in ``<repo>/build/repro_torch/`` (git-ignored), keyed by
 a hash of the sources and flags, so an edited source rebuilds and an
@@ -25,8 +28,9 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -58,6 +62,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list) -> str:
+    """Run the commands concurrently; their output, or ``RuntimeError``
+    with it if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile the library unless it is already on disk; returns its path.
     Raises ``RuntimeError`` with nvcc's output if the build fails."""
@@ -65,15 +83,19 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                    for src, obj in zip(_sources(), objs)])
+    tmp = out.with_name(f"{tag}.tmp.so")
+    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
     os.replace(tmp, out)          # atomic: concurrent builds agree
+    for obj in objs:
+        obj.unlink()
     global build_log
-    build_log = proc.stdout + proc.stderr
+    build_log = log
     return out
 
 

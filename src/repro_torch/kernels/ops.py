@@ -1,11 +1,12 @@
-"""Public attention op in the models' BSHD layout.
+"""Public kernel ops in the models' layouts.
 
-``flash_attention`` dispatches on the tensor's device: a CUDA tensor goes
-to the hand-written kernel (``flash_attention_bhsd``), a CPU tensor to its
-plain version (``attention_plain``).  There is no other switch, and a CUDA
-tensor never reaches the plain version through this function.
-``flash_attention_plain`` runs the plain version on any device, for
-holding the kernel against it.
+``flash_attention`` (BSHD) and ``mlstm_chunk`` ((B, H, L, hd)) dispatch on
+the tensor's device: a CUDA tensor goes to the hand-written kernel
+(``flash_attention_bhsd``, ``mlstm_chunk_step``), a CPU tensor to its plain
+version (``attention_plain``, ``mlstm_chunk_plain``).  There is no other
+switch, and a CUDA tensor never reaches a plain version through these
+functions.  ``flash_attention_plain`` and ``mlstm_chunk_plain`` run the
+plain version on any device, for holding the kernel against it.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import mlstm_scan
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention_bhsd)
 
@@ -46,3 +48,36 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           window: Optional[int] = None) -> torch.Tensor:
     """``flash_attention`` through the plain version on any device."""
     return _bshd(attention_plain, q, k, v, causal, window)
+
+
+def _bh(fn, q, k, v, i_raw, f_raw, c, n, m):
+    """Run a (B·H, ...) mLSTM step on the model's (B, H, ...) tensors.
+    Flattening is a view for contiguous inputs; a strided one (a chunk
+    sliced out of a longer sequence) is copied by ``.contiguous()``."""
+    b, h, l, hd = q.shape
+
+    def flat(t, *shape):
+        return t.reshape(b * h, *shape).contiguous()
+    hs, c2, n2, m2 = fn(flat(q, l, hd), flat(k, l, hd), flat(v, l, hd),
+                        flat(i_raw, l), flat(f_raw, l), flat(c, hd, hd),
+                        flat(n, hd), flat(m))
+    return hs.reshape(b, h, l, hd), (c2.reshape(b, h, hd, hd),
+                                     n2.reshape(b, h, hd), m2.reshape(b, h))
+
+
+def mlstm_chunk(q, k, v, i_raw, f_raw, c, n, m):
+    """One chunk of the stabilised chunkwise mLSTM in the model's layout:
+    q, k, v (B, H, L, hd); i_raw, f_raw (B, H, L); carry c (B, H, hd, hd),
+    n (B, H, hd), m (B, H).  Returns (h (B, H, L, hd) fp32, (c, n, m))."""
+    if q.device.type == "cuda":
+        return _bh(mlstm_scan.mlstm_chunk_step, q, k, v, i_raw, f_raw,
+                   c, n, m)
+    if q.device.type == "cpu":
+        return _bh(mlstm_scan.mlstm_chunk_plain, q, k, v, i_raw, f_raw,
+                   c, n, m)
+    raise ValueError(f"no mLSTM path for device {q.device}")
+
+
+def mlstm_chunk_plain(q, k, v, i_raw, f_raw, c, n, m):
+    """``mlstm_chunk`` through the plain version on any device."""
+    return _bh(mlstm_scan.mlstm_chunk_plain, q, k, v, i_raw, f_raw, c, n, m)

@@ -5,6 +5,17 @@ from repro_torch.models.transformer import (
     decode_cache_len,
     from_jax_params,
 )
+from repro_torch.models.xlstm import (
+    MLSTM_CHUNK,
+    MLSTMState,
+    SLSTMState,
+    make_mlstm_state,
+    make_slstm_state,
+    mlstm_mix,
+    slstm_mix,
+)
 
-__all__ = ["KVCache", "ModelCache", "Transformer", "attn_forward",
-           "decode_cache_len", "from_jax_params", "make_kv_cache"]
+__all__ = ["KVCache", "MLSTM_CHUNK", "MLSTMState", "ModelCache",
+           "SLSTMState", "Transformer", "attn_forward", "decode_cache_len",
+           "from_jax_params", "make_kv_cache", "make_mlstm_state",
+           "make_slstm_state", "mlstm_mix", "slstm_mix"]

@@ -1,9 +1,12 @@
-"""Dense decoder-only transformer (ATTN blocks with a SwiGLU MLP).
+"""Decoder-only model stacks: ATTN blocks with a SwiGLU MLP, and the
+xLSTM blocks (MLSTM, SLSTM) with none.
 
 The port of ``repro/models/transformer.py`` for the architectures whose
-pattern is ``(ATTN,)`` with a dense MLP, as the serving path's qwen3-0.6b
-and qwen1.5-0.5b are.  The reference scans one superblock over stacked
-parameters; here the layers are a plain Python loop over a ``ModuleList``.
+patterns are made of those kinds: the serving path's qwen3-0.6b and
+qwen1.5-0.5b (``(ATTN,)``, dense MLP) and xlstm-1.3b (7 MLSTM + 1 SLSTM).
+The reference scans one superblock over stacked parameters; here the
+layers are a plain Python loop over a ``ModuleList``, layer ``li`` of
+kind ``block_pattern[li % period]``.
 
 Weights keep the reference's ``(in, out)`` layout and are applied as
 ``x @ W`` (not transposed to ``nn.Linear``'s ``(out, in)``), so a
@@ -12,22 +15,28 @@ parameter tree of the reference converts leaf by leaf
 """
 from __future__ import annotations
 
-from typing import List, Mapping, NamedTuple, Optional
+from typing import List, Mapping, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MLSTM, SLSTM, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import AttentionFn, KVCache
 from repro_torch.models.common import (dense_init, embed_init,
                                        resolve_device, rms_norm, swiglu_mlp)
+from repro_torch.models.xlstm import MLSTMFn, MLSTMState, SLSTMState
+
+LayerState = Union[KVCache, MLSTMState, SLSTMState]
+# (block kind, MLP kind) pairs the port implements
+PORTED_KINDS = {(ATTN, "dense"), (MLSTM, "none"), (SLSTM, "none")}
 
 
 class ModelCache(NamedTuple):
-    layers: List[KVCache]     # one KV cache per layer
+    layers: List[LayerState]  # one state per layer, of the layer's kind
     pos: int                  # tokens already processed
 
 
@@ -43,11 +52,35 @@ def decode_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if any(k != ATTN for k in cfg.block_pattern) \
-            or any(m != "dense" for m in cfg.mlp_pattern) \
-            or cfg.encoder_decoder or cfg.learned_pos_emb:
+    kinds = set(zip(cfg.block_pattern, cfg.mlp_pattern))
+    if not kinds <= PORTED_KINDS or cfg.encoder_decoder \
+            or cfg.learned_pos_emb:
         raise NotImplementedError(
-            f"{cfg.name}: only ATTN blocks with a dense MLP are ported")
+            f"{cfg.name}: only ATTN blocks with a dense MLP and MLSTM/SLSTM "
+            f"blocks without one are ported")
+
+
+def _layer_shapes(cfg: ModelConfig, kind: str, mlp_kind: str) -> dict:
+    """Parameter names and shapes of one layer of ``kind``."""
+    d = cfg.d_model
+    shapes = {"norm1": (d,)}
+    if kind == ATTN:
+        hd = cfg.resolved_head_dim
+        h, kvh = cfg.num_heads, cfg.num_kv_heads
+        shapes.update(wq=(d, h * hd), wk=(d, kvh * hd), wv=(d, kvh * hd),
+                      wo=(h * hd, d))
+        if cfg.qkv_bias:
+            shapes.update(bq=(h * hd,), bk=(kvh * hd,), bv=(kvh * hd,))
+        if cfg.qk_norm:
+            shapes.update(q_norm=(hd,), k_norm=(hd,))
+    elif kind == MLSTM:
+        shapes.update(xlstm_mod.mlstm_param_shapes(cfg))
+    else:
+        shapes.update(xlstm_mod.slstm_param_shapes(cfg))
+    if mlp_kind == "dense":
+        shapes.update(norm2=(d,), w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff),
+                      w_down=(cfg.d_ff, d))
+    return shapes
 
 
 class Transformer(nn.Module):
@@ -66,30 +99,35 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
-        d, hd = cfg.d_model, cfg.resolved_head_dim
-        h, kvh = cfg.num_heads, cfg.num_kv_heads
-        shapes = {"norm1": (d,), "wq": (d, h * hd), "wk": (d, kvh * hd),
-                  "wv": (d, kvh * hd), "wo": (h * hd, d), "norm2": (d,),
-                  "w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
-                  "w_down": (cfg.d_ff, d)}
-        if cfg.qkv_bias:
-            shapes.update(bq=(h * hd,), bk=(kvh * hd,), bv=(kvh * hd,))
-        if cfg.qk_norm:
-            shapes.update(q_norm=(hd,), k_norm=(hd,))
+        d = cfg.d_model
+        period = len(cfg.block_pattern)
+        self.kinds = [(cfg.block_pattern[li % period],
+                       cfg.mlp_pattern[li % period])
+                      for li in range(cfg.num_layers)]
         gen = torch.Generator(device=self.device).manual_seed(seed) \
             if init else None
 
-        def make(name, shape):
+        def make(name, shape, kind=ATTN):
+            pdtype = torch.float32 \
+                if kind != ATTN and name in xlstm_mod.FP32_PARAMS else dtype
+            kw = dict(dtype=pdtype, device=self.device)
             if gen is None:
-                t = torch.empty(shape, dtype=dtype, device=self.device)
+                t = torch.empty(shape, **kw)
             elif "norm" in name:
-                t = torch.ones(shape, dtype=dtype, device=self.device)
-            elif name in ("bq", "bk", "bv"):
-                t = torch.zeros(shape, dtype=dtype, device=self.device)
+                t = torch.ones(shape, **kw)
+            elif name in ("bq", "bk", "bv", "conv_b", "b_i"):
+                t = torch.zeros(shape, **kw)
+            elif name == "b_f":          # open forget gates at init
+                t = torch.full(shape, 3.0, **kw)
+            elif name == "b":            # sLSTM z, i, f, o biases
+                t = torch.zeros(shape, **kw)
+                t[2 * d:3 * d] = 3.0
             elif name == "embed":
-                t = embed_init(gen, shape, dtype, self.device)
+                t = embed_init(gen, shape, pdtype, self.device)
+            elif name == "conv_w":
+                t = dense_init(gen, shape, pdtype, self.device, in_axis=0)
             else:
-                t = dense_init(gen, shape, dtype, self.device)
+                t = dense_init(gen, shape, pdtype, self.device)
             return nn.Parameter(t, requires_grad=False)
 
         self.embed = make("embed", (cfg.vocab_size, d))
@@ -97,8 +135,9 @@ class Transformer(nn.Module):
         self.lm_head = None if cfg.tie_embeddings \
             else make("lm_head", (d, cfg.vocab_size))
         self.layers = nn.ModuleList(
-            nn.ParameterDict({n: make(n, s) for n, s in shapes.items()})
-            for _ in range(cfg.num_layers))
+            nn.ParameterDict({n: make(n, s, kind) for n, s in
+                              _layer_shapes(cfg, kind, mlp_kind).items()})
+            for kind, mlp_kind in self.kinds)
 
     # ---- embedding / head ---------------------------------------------
 
@@ -111,43 +150,67 @@ class Transformer(nn.Module):
 
     # ---- forward --------------------------------------------------------
 
-    def init_cache(self, batch: int, seq_len: int) -> List[KVCache]:
+    def init_cache(self, batch: int, seq_len: int) -> List[LayerState]:
+        """Each layer's empty state: a KV cache sized for ``seq_len``, or
+        a zero recurrent state (m at -1e30)."""
         cfg = self.cfg
         s_cache = decode_cache_len(cfg, seq_len)
-        return [attn_mod.make_kv_cache(batch, s_cache, cfg.num_kv_heads,
-                                       cfg.resolved_head_dim, self.dtype,
-                                       self.device)
-                for _ in range(cfg.num_layers)]
+        caches: List[LayerState] = []
+        for kind, _ in self.kinds:
+            if kind == ATTN:
+                caches.append(attn_mod.make_kv_cache(
+                    batch, s_cache, cfg.num_kv_heads, cfg.resolved_head_dim,
+                    self.dtype, self.device))
+            elif kind == MLSTM:
+                caches.append(xlstm_mod.make_mlstm_state(
+                    batch, cfg, self.dtype, self.device))
+            else:
+                caches.append(xlstm_mod.make_slstm_state(batch, cfg,
+                                                         self.device))
+        return caches
 
     def _prefill_block(self, h: torch.Tensor, p: Mapping[str, torch.Tensor],
-                       *, positions, cache: KVCache, attention: AttentionFn):
+                       kind: str, mlp_kind: str, *, positions,
+                       cache: LayerState, attention: AttentionFn,
+                       mlstm: MLSTMFn):
         cfg = self.cfg
         x = rms_norm(h, p["norm1"], cfg.norm_eps)
-        out, new_cache = attn_mod.attn_forward(
-            x, p, cfg, positions=positions, mode="prefill", cache=cache,
-            attention=attention)
+        if kind == ATTN:
+            out, new_cache = attn_mod.attn_forward(
+                x, p, cfg, positions=positions, mode="prefill", cache=cache,
+                attention=attention)
+        elif kind == MLSTM:
+            out, new_cache = xlstm_mod.mlstm_mix(x, p, cfg, cache,
+                                                 mlstm=mlstm)
+        else:
+            out, new_cache = xlstm_mod.slstm_mix(x, p, cfg, cache)
         h = h + out
-        x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
-        h = h + swiglu_mlp(x2, p["w_gate"], p["w_up"], p["w_down"])
+        if mlp_kind == "dense":
+            x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
+            h = h + swiglu_mlp(x2, p["w_gate"], p["w_up"], p["w_down"])
         return h, new_cache
 
     def serve_prefill(self, tokens: torch.Tensor,
                       cache_len: Optional[int] = None,
-                      attention: AttentionFn = ops.flash_attention):
+                      attention: AttentionFn = ops.flash_attention,
+                      mlstm: MLSTMFn = ops.mlstm_chunk):
         """Process the prompt (B, S) and build the decode cache.
 
         Returns (last-token logits (B, V), ModelCache with pos = S).
-        ``attention`` replaces the attention op (same signature as
-        ``ops.flash_attention``), e.g. by its plain version for a check."""
+        ``attention`` and ``mlstm`` replace the attention op and the mLSTM
+        chunk op (same signatures as ``ops.flash_attention`` and
+        ``ops.mlstm_chunk``), e.g. by their plain versions for a check."""
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None]
         caches = self.init_cache(b, cache_len if cache_len is not None
                                  else s)
         h = self.embed_tokens(tokens)
         new_caches = []
-        for p, cache in zip(self.layers, caches):
-            h, c = self._prefill_block(h, p, positions=positions,
-                                       cache=cache, attention=attention)
+        for p, (kind, mlp_kind), cache in zip(self.layers, self.kinds,
+                                               caches):
+            h, c = self._prefill_block(h, p, kind, mlp_kind,
+                                       positions=positions, cache=cache,
+                                       attention=attention, mlstm=mlstm)
             new_caches.append(c)
         h = rms_norm(h[:, -1:], self.final_norm, self.cfg.norm_eps)
         logits = self.lm_logits(h)[:, 0]
@@ -161,10 +224,13 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, *, device=None,
     ``tree`` is ``repro.models.init_params(key, cfg)`` with its leaves
     turned into numpy arrays by the caller (this package cannot import
     jax).  Leaves are cast to float32 first (``torch.from_numpy`` rejects
-    ``ml_dtypes.bfloat16``; bf16 -> fp32 -> bf16 is exact), then to
-    ``dtype``.  The reference stacks each pattern position's layers on a
-    leading superblock axis, so layer ``i * period + j`` is
-    ``tree["blocks"][j][...][i]``.  Weights stay ``(in, out)``.
+    ``ml_dtypes.bfloat16``; bf16 -> fp32 -> bf16 is exact), then to the
+    parameter's dtype: ``dtype``, or float32 for the xLSTM gate weights
+    and biases, which the reference keeps in float32.  The reference
+    stacks each pattern position's layers on a leading superblock axis, so
+    layer ``i * period + j`` is ``tree["blocks"][j][...][i]``; a layer's
+    ``mix`` tree (and ``mlp``, where it has one) flatten into its
+    parameter dict.  Weights stay ``(in, out)``.
     """
     model = Transformer(cfg, device=device, dtype=dtype, init=False)
 
@@ -183,8 +249,9 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, *, device=None,
     for li, p in enumerate(model.layers):
         i, j = divmod(li, period)
         blk = tree["blocks"][j]
-        flat = {"norm1": blk["norm1"], "norm2": blk["norm2"],
-                **blk["mix"], **blk["mlp"]}
+        flat = {"norm1": blk["norm1"], **blk["mix"]}
+        if "mlp" in blk:
+            flat.update(norm2=blk["norm2"], **blk["mlp"])
         if set(flat) != set(p.keys()):
             raise ValueError(f"layer {li}: keys {sorted(flat)} != "
                              f"{sorted(p.keys())}")

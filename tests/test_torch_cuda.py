@@ -1,5 +1,5 @@
-"""The port on the card: the CUDA kernel against its plain version, and the
-entry points' default device.  Every test here needs a CUDA device and
+"""The port on the card: the CUDA kernels against their plain versions, and
+the entry points' default device.  Every test here needs a CUDA device and
 ``nvcc`` and skips without them.  The file imports neither jax nor the JAX
 package, so it also runs on a machine that has only PyTorch:
 
@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops
+from repro_torch.kernels import mlstm_scan, ops
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +82,94 @@ def test_cuda_stage_server_defaults_to_the_card(card):
     out = stage.process(torch.zeros(2, 8, dtype=torch.int32, device="cuda"))
     assert out.device.type == "cuda"
     assert out.dtype == torch.int32 and out.shape == (2,)
+
+
+def _mlstm_chunk(gen, bh, l, hd, dtype, pad=0):
+    """q, k (pre-scaled), v in ``dtype`` and fp32 gates, as the model
+    makes them; the last ``pad`` steps carry its padding."""
+    q, k, v = (torch.randn(bh, l, hd, generator=gen, device="cuda")
+               for _ in range(3))
+    k = k / hd ** 0.5
+    i_raw = torch.randn(bh, l, generator=gen, device="cuda")
+    f_raw = torch.randn(bh, l, generator=gen, device="cuda") + 2.0
+    if pad:
+        for t in (q, k, v):
+            t[:, l - pad:] = 0.0
+        i_raw[:, l - pad:] = -1e30
+        f_raw[:, l - pad:] = 30.0
+    return q.to(dtype), k.to(dtype), v.to(dtype), i_raw, f_raw
+
+
+@pytest.mark.parametrize("bh,l,hd,chunks,pad,dtype", [
+    (16, 16, 1024, 1, 0, torch.bfloat16),    # the serving path's chunk
+    (16, 16, 1024, 3, 0, torch.bfloat16),    # carried across chunks
+    (4, 100, 64, 3, 0, torch.float32),       # ragged L
+    (3, 7, 16, 2, 3, torch.float32),         # padded tail
+    (2, 1, 8, 3, 0, torch.float32),
+])
+def test_cuda_mlstm_kernel_matches_plain(card, bh, l, hd, chunks, pad,
+                                         dtype):
+    """The carry threaded through ``chunks`` chunks on each side: h, C, n
+    within 2e-3 + 2e-2 |ref| and m within 1e-4 (the repo's mLSTM kernel
+    tolerances); both compute in fp32 from the same inputs."""
+    carry = (torch.zeros(bh, hd, hd, device="cuda"),
+             torch.zeros(bh, hd, device="cuda"),
+             torch.full((bh,), -1e30, device="cuda"))
+    kern, plain = carry, carry
+    for ci in range(chunks):
+        xs = _mlstm_chunk(card, bh, l, hd, dtype,
+                          pad if ci == chunks - 1 else 0)
+        before = mlstm_scan.LAUNCHES
+        h_k, *kern = mlstm_scan.mlstm_chunk_step(*xs, *kern)
+        torch.cuda.synchronize()
+        assert mlstm_scan.LAUNCHES == before + 1
+        h_p, *plain = mlstm_scan.mlstm_chunk_plain(*xs, *plain)
+        for name, a, b in zip(("h", "c", "n", "m"), (h_k, *kern),
+                              (h_p, *plain)):
+            assert a.dtype == torch.float32 and a.shape == b.shape
+            tol = 1e-4 if name == "m" else 2e-3
+            rtol = 1e-4 if name == "m" else 2e-2
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       atol=tol, rtol=rtol,
+                                       err_msg=f"{name} chunk {ci}")
+
+
+def test_cuda_mlstm_kernel_refuses_unsupported_sizes(card):
+    for l, hd in ((257, 64), (16, 48), (16, 2048)):
+        xs = _mlstm_chunk(card, 2, l, hd, torch.bfloat16)
+        carry = (torch.zeros(2, hd, hd, device="cuda"),
+                 torch.zeros(2, hd, device="cuda"),
+                 torch.zeros(2, device="cuda"))
+        with pytest.raises(ValueError, match="chunk length|head_dim"):
+            mlstm_scan.mlstm_chunk_step(*xs, *carry)
+
+
+def test_cuda_xlstm_prefill_runs_the_kernel_per_layer_and_chunk(card):
+    """Reduced xlstm-1.3b (7 mLSTM layers, hd 128), S = 40 in the model's
+    chunks of 256: one chunk, so 7 launches; then chunks of 16 through
+    ``mlstm_mix`` directly: 3 chunks, the last one padded."""
+    from repro_torch.models import Transformer, make_mlstm_state, mlstm_mix
+    cfg = get_config("xlstm-1.3b", reduced=True)
+    model = Transformer(cfg, dtype=torch.float32, seed=0)
+    assert model.device.type == "cuda"
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=card,
+                           device="cuda", dtype=torch.int32)
+    n_mlstm = cfg.block_pattern.count("mlstm")
+    with torch.inference_mode():
+        before = mlstm_scan.LAUNCHES
+        logits, _ = model.serve_prefill(tokens)
+        launched = mlstm_scan.LAUNCHES - before
+        plain, _ = model.serve_prefill(tokens, mlstm=ops.mlstm_chunk_plain)
+        x = torch.randn(2, 40, cfg.d_model, generator=card, device="cuda")
+        state = make_mlstm_state(2, cfg, torch.float32, "cuda")
+        before = mlstm_scan.LAUNCHES
+        out, _ = mlstm_mix(x, model.layers[0], cfg, state, chunk=16)
+        chunked = mlstm_scan.LAUNCHES - before
+        out_p, _ = mlstm_mix(x, model.layers[0], cfg, state, chunk=16,
+                             mlstm=ops.mlstm_chunk_plain)
+    assert launched == n_mlstm * 1
+    assert chunked == 3
+    assert torch.isfinite(logits).all()
+    assert torch.equal(logits.argmax(-1), plain.argmax(-1))
+    np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(),
+                               atol=2e-3, rtol=2e-2)

@@ -49,6 +49,10 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
         "                      device='cpu')\n"
         "out = st.process(torch.zeros(2, 8, dtype=torch.int32))\n"
         "assert out.shape == (2,) and out.dtype == torch.int32\n"
+        "st = ModelStageServer('x', 'xlstm-1.3b', seq_len=8, reduced=True,\n"
+        "                      device='cpu')\n"
+        "out = st.process(torch.zeros(2, 8, dtype=torch.int32))\n"
+        "assert out.shape == (2,) and out.dtype == torch.int32\n"
         "assert sys.modules['jax'] is None and sys.modules['repro'] is None\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -72,4 +76,4 @@ def test_device_none_raises_without_cuda(monkeypatch):
 def test_unported_architecture_raises():
     from repro_torch.configs import get_config
     with pytest.raises(KeyError, match="not ported"):
-        get_config("xlstm-1.3b")
+        get_config("jamba-v0.1-52b")
