@@ -26,9 +26,25 @@ Phases, each printing one line per case:
      profiled call of a stage alone (wall time, device idle share):
      qwen3-0.6b -> qwen1.5-0.5b, then text-to-img, xlstm-1.3b ->
      qwen1.5-0.5b (``sim/workloads.py``);
+  7. decode: the decode-attention kernel against its plain version
+     (``check_decode``: G 1/2/12, hd 64/128, Sc 1 to 4096, valid from 0 to
+     Sc, bf16 and fp32, the cache in the model's strided layout), its
+     times at the decode path's shapes (``time_decode``: qwen3-0.6b and
+     qwen1.5-0.5b at B 4, Sc 2080, starcoder2-3b at B 4, Sc 4096, against
+     ``scaled_dot_product_attention``), then ``Transformer.serve_decode``
+     at full width and depth in bf16 after each model's prefill
+     (``decode``: qwen3-0.6b and qwen1.5-0.5b, B 4, prompt 2048, 32 steps;
+     starcoder2-3b, B 4, prompt 4096 = its window, 64 steps through the
+     full ring; xlstm-1.3b, B 4, prompt 256, 16 steps), every kernel call
+     of a first run held against the plain version on its own inputs and
+     a second run timed (ms per step, device idle share, launches), and
+     in fp32 prefill + teacher-forced decode against the prefill of the
+     whole sequence (``decode_consistency``: qwen3-0.6b, and starcoder2-3b
+     decoding past its window through the ring);
 then a ``{"kernels": [...]}`` line (``launches``: each kernel's launches
-in the served traces alone, counted from 0 just before each chain and
-read just after; the timed prefills' counts beside them), the
+on its path, counted from 0 just before the path and read just after:
+the served traces for the prefill kernels, the timed decode steps for
+the decode kernel; the other paths' counts beside them), the
 ``nvidia-smi`` line again, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without that line.  It imports nothing of jax or of
@@ -75,6 +91,17 @@ MLSTM_KERNELS = ("mlstm_gates_kernel", "mlstm_state_kernel")  # its passes
 # |diff| <= atol + rtol |ref| for h, c, n; m is a sum of log gates
 MLSTM_TOL = {"h": (2e-3, 2e-2), "c": (2e-3, 2e-2), "n": (2e-3, 2e-2),
              "m": (1e-4, 1e-4)}
+# decode attention, kernel vs plain (both fp32 inside): |diff| <= tol +
+# tol |ref|, the reference's decode tolerances (tests/test_kernels.py)
+DECODE_TOL = {torch.float32: 3e-3, torch.bfloat16: 2e-2}
+DECODE_KERNELS = ("decode_attention_kernel",
+                  "decode_attention_combine_kernel")   # its two passes
+# fp32 prefill + decode vs the prefill of the whole sequence: max |logit
+# diff| over max |logit|.  The two paths sum in other orders (the prefill
+# and decode kernels, GEMMs of 1 row against thousands), ~1e-6 of each
+# layer's output in fp32; a wrong ring slot, position or mask moves the
+# logits by O(1)
+DECODE_LOGIT_REL_TOL = 2e-3
 
 
 def emit(obj) -> None:
@@ -528,6 +555,321 @@ def prefill_xlstm(ms, ops, Transformer, get_config) -> int:
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 7: decode
+# --------------------------------------------------------------------------
+
+def decode_case(gen, b, sc, h, kvh, hd, dtype, layout: str):
+    """q (B, 1, H, hd) and a cache in ``layout``: "model" (B, Sc, KVH, hd)
+    as the model keeps it, or "slice" (that layout cut out of a larger
+    buffer, strided in every axis but hd)."""
+    q = rand(gen, (b, 1, h, hd), dtype)
+    k, v = (rand(gen, (b, sc, kvh, hd), dtype) for _ in range(2))
+    if layout == "slice":
+        def cut(t):
+            buf = torch.zeros(b + 1, sc + 3, kvh + 1, hd, dtype=dtype,
+                              device="cuda")
+            buf[1:, 2:2 + sc, 1:] = t
+            return buf[1:, 2:2 + sc, 1:]
+        k, v = cut(k), cut(v)
+    return q, k, v
+
+
+def check_decode(dec) -> float:
+    """The decode kernel against ``decode_attention_plain`` on the card,
+    one line per (G, hd, Sc, dtype, layout), with the max error for each
+    ``valid`` (0, 1, part of Sc, Sc: a full ring)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b, kvh = 2, 2
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for g in (1, 2, 12):
+            for hd in (64, 128):
+                for sc in (1, 7, 100, 2080, 4096):
+                    layouts = ("model", "slice") if sc == 100 \
+                        else ("model",)
+                    for layout in layouts:
+                        worst = max(worst, _check_decode_case(
+                            dec, gen, b, sc, g * kvh, kvh, hd, dtype,
+                            layout))
+    return worst
+
+
+def _check_decode_case(dec, gen, b, sc, h, kvh, hd, dtype, layout) -> float:
+    q, k, v = decode_case(gen, b, sc, h, kvh, hd, dtype, layout)
+    qp = q.reshape(b * kvh, h // kvh, hd)
+    tol = DECODE_TOL[dtype]
+    errs, ok = {}, True
+    for valid in sorted({0, 1, max(1, sc * 5 // 8), sc}):
+        kw = dict(num_heads=h, num_kv_heads=kvh)
+        out = dec.decode_attention_packed(qp, k, v, valid, **kw)
+        ref = dec.decode_attention_plain(qp, k, v, valid, **kw)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        errs[valid] = diff.max().item()
+        ok &= out.shape == ref.shape and out.dtype == dtype \
+            and bool((diff <= tol + tol * ref.float().abs()).all()) \
+            and math.isfinite(errs[valid]) \
+            and (valid > 0 or not bool(out.any()))
+    emit({"phase": "check_decode", "g": h // kvh, "hd": hd, "sc": sc,
+          "b": b, "kvh": kvh, "dtype": str(dtype).split(".")[-1],
+          "layout": layout, "max_abs_err_by_valid": errs, "tol": tol,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"decode kernel disagrees with plain: case "
+                             f"{(b, sc, h, kvh, hd, dtype, layout)}")
+    return max(errs.values())
+
+
+# the decode path's attention shapes: (model, H, KVH, hd, Sc)
+DECODE_SHAPES = [("qwen3-0.6b", 16, 8, 128, 2080),
+                 ("qwen1.5-0.5b", 16, 16, 64, 2080),
+                 ("starcoder2-3b", 24, 2, 128, 4096)]
+
+
+def time_decode(dec, ops, peaks) -> list:
+    """Kernel, plain and library times at the decode path's shapes, B 4,
+    bf16, every slot valid (the last step of the path), and the kernel's
+    device time at other split targets (``BLOCKS_PER_SM``).  The caches
+    rotate over enough copies to exceed the 50 MB L2, as the path's layers
+    each read their own cache."""
+    import torch.nn.functional as F
+    flops_rate, mem_rate = peaks
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, dt = 4, torch.bfloat16
+    rows = []
+    for arch, h, kvh, hd, sc in DECODE_SHAPES:
+        valid = sc
+        kv_bytes = 2 * b * sc * kvh * hd * 2
+        n_sets = max(2, math.ceil(200e6 / kv_bytes))
+        q = rand(gen, (b, 1, h, hd), dt)
+        caches = [tuple(rand(gen, (b, sc, kvh, hd), dt) for _ in range(2))
+                  for _ in range(n_sets)]
+        turn = [0]
+
+        def rotating(fn):
+            def call():
+                turn[0] = (turn[0] + 1) % n_sets
+                return fn(*caches[turn[0]])
+            return call
+        kernel = rotating(lambda k, v: ops.decode_attention(q, k, v, valid))
+        ms = cuda_ms(kernel, 200)
+        by_pass = kernel_device_ms(kernel, DECODE_KERNELS, 50)
+        dev_ms = sum(by_pass.values())
+        # the split target's effect: device ms at other blocks per SM
+        default = dec.BLOCKS_PER_SM
+        by_target = {default: dev_ms}
+        for target in (1, 4, 8):
+            dec.BLOCKS_PER_SM = target
+            try:
+                by_target[target] = sum(kernel_device_ms(
+                    kernel, DECODE_KERNELS, 50).values())
+            finally:
+                dec.BLOCKS_PER_SM = default
+        plain_ms = cuda_ms(rotating(
+            lambda k, v: ops.decode_attention_plain(q, k, v, valid)), 20)
+        # the library's own layout, (B, KVH, Sc, hd), made outside the
+        # timing; slots >= valid masked (none at valid = Sc)
+        lib_kv = [tuple(t.transpose(1, 2).contiguous() for t in kv)
+                  for kv in caches]
+        mask = (torch.arange(sc, device="cuda") < valid)[None, None, None]
+        qt = q.transpose(1, 2)
+        lib_turn = [0]
+
+        def library():
+            lib_turn[0] = (lib_turn[0] + 1) % n_sets
+            k, v = lib_kv[lib_turn[0]]
+            return F.scaled_dot_product_attention(qt, k, v, attn_mask=mask,
+                                                  enable_gqa=kvh != h)
+        lib_ms = cuda_ms(library, 200)
+        del lib_kv
+        # K and V up to valid read once, q read and out written once
+        nbytes = 2 * b * valid * kvh * hd * 2 + 2 * q.numel() * 2
+        flops = 4 * b * h * valid * hd
+        t_ops, t_bytes = flops / flops_rate, nbytes / mem_rate
+        row = {"arch": arch, "b": b, "h": h, "kvh": kvh, "hd": hd,
+               "g": h // kvh, "sc": sc, "valid": valid, "dtype": "bfloat16",
+               "cache_copies_rotated": n_sets, "ms": ms, "device_ms": dev_ms,
+               "device_ms_by_pass": by_pass,
+               "device_ms_by_blocks_per_sm": dict(sorted(by_target.items())),
+               "plain_ms": plain_ms,
+               "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        row["bound_share"] = row["bound_ms"] / ms
+        row["bound_share_device"] = row["bound_ms"] / dev_ms
+        emit({"phase": "time_decode", **row})
+        rows.append(row)
+        del caches
+        torch.cuda.empty_cache()
+    return rows
+
+
+def checking_decode_op(ops, errs: dict):
+    """A decode attention op for ``serve_decode`` that runs the kernel and,
+    on the same inputs, the plain version; it keeps in ``errs`` the
+    largest error over all calls, its worst ratio to the tolerance
+    (DECODE_TOL) and the number of calls, and hands the kernel's result
+    on."""
+    def op(q, k, v, valid):
+        out = ops.decode_attention(q, k, v, valid)
+        ref = ops.decode_attention_plain(q, k, v, valid).float()
+        tol = DECODE_TOL[q.dtype]
+        diff = (out.float() - ref).abs()
+        errs["max_abs_err"] = max(errs.get("max_abs_err", 0.0),
+                                  diff.max().item())
+        errs["worst_ratio"] = max(errs.get("worst_ratio", 0.0),
+                                  (diff / (tol + tol * ref.abs())).max()
+                                  .item())
+        errs["calls"] = errs.get("calls", 0) + 1
+        return out
+    return op
+
+
+def decode_steps(model, logits, cache, steps: int, **kw):
+    """``steps`` greedy decode steps from a prefill's logits and cache;
+    returns the last logits, the cache and the tokens fed (B, steps)."""
+    fed = []
+    for _ in range(steps):
+        nxt = logits.argmax(-1)
+        fed.append(nxt)
+        logits, cache = model.serve_decode(nxt, cache, **kw)
+    return logits, cache, torch.stack(fed, dim=1)
+
+
+# (model, prompt, decode steps, seed): B = 4 for each
+DECODE_RUNS = [("qwen3-0.6b", 2048, 32, 0), ("qwen1.5-0.5b", 2048, 32, 1),
+               ("starcoder2-3b", 4096, 64, 4), ("xlstm-1.3b", 256, 16, 3)]
+
+
+def decode_full_width(dec, ops, Transformer, get_config) -> dict:
+    """``serve_decode`` at full width and depth in bf16 after each model's
+    prefill; returns the decode kernel's launches in each model's timed
+    steps."""
+    from repro_torch.configs import ATTN
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    b = 4
+    launches = {}
+    for arch, prompt, steps, seed in DECODE_RUNS:
+        cfg = get_config(arch)
+        n_attn = cfg.block_pattern.count(ATTN) * cfg.num_superblocks
+        model = Transformer(cfg, device="cuda", dtype=torch.bfloat16,
+                            seed=seed)
+        tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        errs: dict = {}
+        with torch.inference_mode():
+            # run 1: every kernel call held against the plain version
+            logits, cache = model.serve_prefill(tokens,
+                                                cache_len=prompt + steps)
+            _, cache, fed_checked = decode_steps(
+                model, logits, cache, steps,
+                decode_attention=checking_decode_op(ops, errs))
+            del cache
+            # run 2, timed: the counts from 0 just before the steps
+            logits, cache = model.serve_prefill(tokens,
+                                                cache_len=prompt + steps)
+            s_cache = cache.layers[0].k.shape[1] if n_attn else None
+            k_ptr = cache.layers[0].k.data_ptr() if n_attn else None
+            torch.cuda.synchronize()
+            dec.LAUNCHES = 0
+            t0 = time.perf_counter()
+            last, cache, fed = decode_steps(model, logits, cache, steps)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches[arch] = dec.LAUNCHES
+            in_place = k_ptr is None or cache.layers[0].k.data_ptr() == k_ptr
+            del cache
+            # run 3, profiled: device time of a few steps
+            prof_steps = min(8, steps)
+            logits, cache = model.serve_prefill(tokens,
+                                                cache_len=prompt + steps)
+            torch.cuda.synchronize()
+            device_ms, kernels = device_profile(
+                lambda: decode_steps(model, logits, cache, prof_steps))
+            del cache
+        step_ms = wall_s * 1e3 / steps
+        dev_step_ms = device_ms / prof_steps
+        decode_kernel_ms = sum(t for name, _, t in kernels
+                               if any(k in name for k in DECODE_KERNELS))
+        finite = bool(torch.isfinite(last).all())
+        emit({"phase": "decode", "arch": arch, "b": b, "prompt": prompt,
+              "steps": steps, "layers": cfg.num_layers,
+              "attention_layers": n_attn, "s_cache": s_cache,
+              "ms_per_step": step_ms, "device_ms_per_step": dev_step_ms,
+              "device_idle_share": max(0.0, 1 - dev_step_ms / step_ms),
+              "device_launches_per_step":
+                  sum(n for _, n, _ in kernels) / prof_steps,
+              "tokens_per_s": b * steps / wall_s,
+              "decode_kernel_launches": launches[arch],
+              "decode_kernel_ms_per_step": decode_kernel_ms / prof_steps,
+              "decode_kernel_share": decode_kernel_ms / device_ms,
+              "kernel_errs_vs_plain": errs, "cache_updated_in_place":
+                  in_place, "finite": finite,
+              "same_tokens_as_checked_run": bool(torch.equal(
+                  fed, fed_checked)),
+              "logits_shape": list(last.shape),
+              "top_device_kernels": kernels[:6]})
+        if launches[arch] != n_attn * steps:
+            raise AssertionError(f"{arch}: {launches[arch]} decode kernel "
+                                 f"launches for {n_attn} attention layers "
+                                 f"x {steps} steps")
+        if n_attn and errs.get("calls") != n_attn * steps:
+            raise AssertionError(f"{arch}: {errs.get('calls')} checked calls")
+        if n_attn and not errs["worst_ratio"] <= 1.0:
+            raise AssertionError(f"{arch}: a decode kernel call disagrees "
+                                 f"with the plain version: {errs}")
+        if last.shape != (b, cfg.vocab_size) or not finite or not in_place:
+            raise AssertionError(f"{arch}: bad decode logits or cache")
+        del model, logits, last
+        torch.cuda.empty_cache()
+    return launches
+
+
+# (model, batch, prompt, teacher-forced decode steps)
+CONSISTENCY_RUNS = [("qwen3-0.6b", 2, 512, 16),
+                    # 4092 + 12 crosses the 4096 window: the last 8 steps
+                    # overwrite the ring's oldest slots
+                    ("starcoder2-3b", 1, 4092, 12)]
+
+
+def decode_consistency(Transformer, get_config) -> list:
+    """In fp32 at full width and depth: prefill(S) and N teacher-forced
+    decode steps give the last logits of prefill(S + N)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+    for arch, b, s, n in CONSISTENCY_RUNS:
+        cfg = get_config(arch)
+        model = Transformer(cfg, device="cuda", dtype=torch.float32, seed=5)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        with torch.inference_mode():
+            full, full_cache = model.serve_prefill(tokens)
+            s_cache = full_cache.layers[0].k.shape[1]
+            del full_cache
+            logits, cache = model.serve_prefill(tokens[:, :s],
+                                                cache_len=s + n)
+            for i in range(s, s + n):
+                logits, cache = model.serve_decode(tokens[:, i], cache)
+            torch.cuda.synchronize()
+        same = bool(torch.equal(logits.argmax(-1), full.argmax(-1)))
+        rel = (logits - full).abs().max().item() / full.abs().max().item()
+        row = {"phase": "decode_consistency", "arch": arch, "dtype": "float32",
+               "b": b, "prompt": s, "decode_steps": n,
+               "window": cfg.sliding_window, "s_cache": s_cache,
+               "ring_wrapped": s + n > cache.layers[0].k.shape[1],
+               "argmax_equal": same, "max_rel_logit_diff": rel,
+               "tol": DECODE_LOGIT_REL_TOL}
+        emit(row)
+        rows.append(row)
+        if not same or not rel <= DECODE_LOGIT_REL_TOL:
+            raise AssertionError(f"{arch}: prefill + decode differs from the "
+                                 f"prefill of the whole sequence: {row}")
+        del model, full, logits, cache
+        torch.cuda.empty_cache()
+    return rows
+
+
 def build_allocation(n_stages: int, instances: int, batch: int):
     """Stage 0 gets ``instances`` concurrent instances, the rest one each,
     all on device 0; quotas floored onto the ``QUOTA_STEP`` lattice (as
@@ -666,6 +1008,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mlstm_scan as ms
     from repro_torch.models import Transformer
@@ -691,8 +1034,10 @@ def main() -> int:
 
     worst = check_kernels(fa)
     worst_mlstm = check_mlstm(ms)
+    worst_decode = check_decode(dec)
     timing = time_kernels(fa, peaks)
     timing_mlstm = time_mlstm(ms, peaks)
+    timing_decode = time_decode(dec, ops, peaks)
 
     # each path resets the counts just before it runs and reads them just
     # after: the full-width prefills, then the served chains (the main
@@ -700,11 +1045,19 @@ def main() -> int:
     launches_prefill = prefill_full_width(fa, ops, Transformer, get_config)
     launches_prefill_mlstm = prefill_xlstm(ms, ops, Transformer, get_config)
     first, second = serve_pipelines(fa, ms)
+    # the decode path: the decode kernel's count from 0 before each
+    # model's timed steps; the prefills before them count the others
+    fa.LAUNCHES = ms.LAUNCHES = 0
+    launches_decode = decode_full_width(dec, ops, Transformer, get_config)
+    launches_decode_prefills = {"flash_attention_bhsd": fa.LAUNCHES,
+                                "mlstm_chunk_step": ms.LAUNCHES}
+    decode_consistency(Transformer, get_config)
 
     main_row = timing[0]
     attn_serve = first["flash_attention_bhsd"] \
         + second["flash_attention_bhsd"]
     mlstm_row = timing_mlstm[0]           # the serving shape, L = 16
+    decode_row = timing_decode[0]         # qwen3-0.6b's, B 4, Sc 2080
     emit({"kernels": [{
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -712,7 +1065,10 @@ def main() -> int:
         "launches": attn_serve, "launches_serve": attn_serve,
         "launches_serve_chain": first["flash_attention_bhsd"],
         "launches_serve_text_to_img": second["flash_attention_bhsd"],
-        "launches_prefill": launches_prefill, "max_abs_err": worst,
+        "launches_prefill": launches_prefill,
+        "launches_decode_path_prefills":
+            launches_decode_prefills["flash_attention_bhsd"],
+        "max_abs_err": worst,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
@@ -723,13 +1079,27 @@ def main() -> int:
         "launches": second["mlstm_chunk_step"],
         "launches_serve_chain": first["mlstm_chunk_step"],
         "launches_prefill": launches_prefill_mlstm,
+        "launches_decode_path_prefills":
+            launches_decode_prefills["mlstm_chunk_step"],
         "max_abs_err": worst_mlstm,
         "ms": mlstm_row["ms"], "plain_ms": mlstm_row["plain_ms"],
         "bound_ms": mlstm_row["bound_ms"],
         "bound_by": mlstm_row["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes a chunkwise "
                         "mLSTM step",
-        "per_shape": timing_mlstm}]})
+        "per_shape": timing_mlstm}, {
+        "name": "decode_attention_packed", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:65",
+        "launches": sum(launches_decode.values()),
+        "launches_decode_by_model": launches_decode,
+        "launches_serve": 0, "max_abs_err": worst_decode,
+        "ms": decode_row["ms"], "device_ms": decode_row["device_ms"],
+        "plain_ms": decode_row["plain_ms"],
+        "bound_ms": decode_row["bound_ms"],
+        "bound_by": decode_row["bound_by"],
+        "library_ms": decode_row["library_ms"],
+        "per_shape": timing_decode}]})
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

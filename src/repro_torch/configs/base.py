@@ -127,6 +127,7 @@ _REDUCERS: dict[str, Callable[[ModelConfig], ModelConfig]] = {}
 _MODULES = {
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "qwen3-0.6b": "qwen3_0p6b",
+    "starcoder2-3b": "starcoder2_3b",
     "xlstm-1.3b": "xlstm_1p3b",
 }
 ARCH_IDS = tuple(_MODULES)

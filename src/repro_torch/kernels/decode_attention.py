@@ -1,0 +1,172 @@
+"""Decode attention: the hand-written Hopper kernel and its plain version.
+
+``decode_attention_packed`` launches ``csrc/decode_attention.cu`` (the port
+of the TPU kernel ``repro/kernels/decode_attention.py:
+decode_attention_packed``) on CUDA tensors and counts each launch in
+``LAUNCHES`` (one per call: the entry point runs the kernel and its
+combine pass).  It takes no CPU tensor and never
+falls back: a failed build or launch raises.
+
+One query token per sequence: q (B·KVH, G, hd), the G query heads of one
+KV head packed as rows (query head ``h = kvh * G + g``).  The cache is the
+model's (B, Sc, KVH, hd), which the kernel reads in place through its
+strides (the TPU kernel takes it transposed to (B·KVH, Sc, hd), which here
+would copy every layer's cache at every step).
+``valid`` is a host int, the number of leading cache slots that hold
+tokens (``min(pos + 1, Sc)`` in a decode step); slots past it are masked
+and skipped, so ``valid == 0`` gives zeros, as the TPU kernel's
+``acc / max(l, 1e-30)`` does (the reference oracle ``decode_attention_ref``
+would give the mean of V there).
+
+``decode_attention_plain`` is the same function in plain PyTorch, in
+fp32: the CPU path of ``kernels.ops`` and the yardstick the kernel is held
+against on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (64, 128)
+MAX_G = 16                    # query heads per KV head
+TILE = 32                     # the kernel's slots per tile
+BLOCKS_PER_SM = 2             # the split target: blocks per SM
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches of the CUDA kernel since the last reset (``LAUNCHES = 0``)
+LAUNCHES = 0
+_count_lock = threading.Lock()
+_fn = None
+_sm_counts: dict = {}
+
+
+def _entry():
+    """The C entry point, with its argument types declared (a pointer
+    passed without ``c_void_p`` would be cut to 32 bits)."""
+    global _fn
+    if _fn is None:
+        fn = _build.load().repro_decode_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q, k, v, valid, num_heads: int, num_kv_heads: int):
+    """Validates the shapes; returns (B, KVH, Sc, hd) views of k, v (no
+    copy)."""
+    if q.dim() != 3:
+        raise ValueError("q must be (B·KVH, G, hd)")
+    bkv, g, hd = q.shape
+    if num_heads % num_kv_heads or num_heads // num_kv_heads != g:
+        raise ValueError(f"q packs {g} heads per KV head; H={num_heads}, "
+                         f"KVH={num_kv_heads}")
+    if bkv == 0 or bkv % num_kv_heads:
+        raise ValueError(f"{bkv} query rows for KVH={num_kv_heads}")
+    if isinstance(valid, bool) or not isinstance(valid, int) or valid < 0:
+        raise ValueError(f"valid must be a non-negative host int, got "
+                         f"{valid!r}")
+    b = bkv // num_kv_heads
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b \
+            or k.shape[2:] != (num_kv_heads, hd):
+        raise ValueError(f"the cache must be (B={b}, Sc, KVH={num_kv_heads}, "
+                         f"hd={hd}) for q{tuple(q.shape)}: k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    if k.shape[1] == 0:
+        raise ValueError("empty cache")
+    return k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+
+
+def _splits(n: int, bkv: int, device: torch.device) -> tuple:
+    """(nsplit, chunk): cut the n valid slots so that about
+    ``BLOCKS_PER_SM`` blocks per SM run, in whole tiles, none past
+    ``valid`` and none empty."""
+    if n == 0:
+        return 1, TILE
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    per_row = max(1, math.ceil(BLOCKS_PER_SM * _sm_counts[idx] / bkv))
+    chunk = math.ceil(math.ceil(n / per_row) / TILE) * TILE
+    return math.ceil(n / chunk), chunk
+
+
+def decode_attention_packed(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, valid: int, *, num_heads: int,
+                            num_kv_heads: int) -> torch.Tensor:
+    """q: (B·KVH, G, hd); k, v: (B, Sc, KVH, hd), hd contiguous; valid:
+    host int -> (B·KVH, G, hd) in q's dtype, by the CUDA kernel on the
+    current stream."""
+    global LAUNCHES
+    k4, v4 = _check(q, k, v, valid, num_heads, num_kv_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_packed runs on CUDA tensors, "
+                         f"got {q.device}; the CPU path is "
+                         f"decode_attention_plain")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must be on one device")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the kernel "
+                         f"takes float32 or bfloat16, all alike")
+    bkv, g, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if g > MAX_G:
+        raise ValueError(f"{g} query heads per KV head; the kernel packs at "
+                         f"most {MAX_G}")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    vec = 16 // q.element_size()          # the kernel's 16-byte loads
+    for name, t in (("k", k4), ("v", v4)):
+        if t.stride(3) != 1 or t.data_ptr() % 16 \
+                or any(s % vec for s in t.stride()[:3]):
+            raise ValueError(f"{name}: head_dim must be contiguous and every "
+                             f"row 16-byte aligned, strides {t.stride()}")
+    sc = k4.shape[2]
+    n = min(valid, sc)
+    nsplit, chunk = _splits(n, bkv, q.device)
+    out = torch.empty_like(q)
+    # the splits' partial (acc, m, l), from torch's allocator on this stream
+    ws = torch.empty(bkv * nsplit * g * (hd + 2), dtype=torch.float32,
+                     device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _entry()(q.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                       out.data_ptr(), ws.data_ptr(),
+                       bkv, num_kv_heads, g, hd, n, nsplit, chunk,
+                       k4.stride(0), k4.stride(1), k4.stride(2),
+                       v4.stride(0), v4.stride(1), v4.stride(2),
+                       1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"decode attention kernel launch failed: CUDA "
+                           f"error {err}")
+    with _count_lock:
+        LAUNCHES += 1
+    return out
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, valid: int, *, num_heads: int,
+                           num_kv_heads: int) -> torch.Tensor:
+    """The same function in plain PyTorch, all fp32: softmax over the
+    first ``min(valid, Sc)`` slots, zeros when there are none."""
+    k4, v4 = _check(q, k, v, valid, num_heads, num_kv_heads)
+    bkv, g, hd = q.shape
+    n = min(valid, k4.shape[2])
+    if n == 0:
+        return torch.zeros_like(q)
+    qf = q.float().view(-1, num_kv_heads, g, hd) / math.sqrt(hd)
+    s = torch.einsum("bkgd,bkcd->bkgc", qf, k4[:, :, :n].float())
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgc,bkcd->bkgd", p, v4[:, :, :n].float())
+    return out.reshape(bkv, g, hd).to(q.dtype)

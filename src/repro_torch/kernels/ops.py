@@ -1,12 +1,15 @@
 """Public kernel ops in the models' layouts.
 
-``flash_attention`` (BSHD) and ``mlstm_chunk`` ((B, H, L, hd)) dispatch on
-the tensor's device: a CUDA tensor goes to the hand-written kernel
-(``flash_attention_bhsd``, ``mlstm_chunk_step``), a CPU tensor to its plain
-version (``attention_plain``, ``mlstm_chunk_plain``).  There is no other
-switch, and a CUDA tensor never reaches a plain version through these
-functions.  ``flash_attention_plain`` and ``mlstm_chunk_plain`` run the
-plain version on any device, for holding the kernel against it.
+``flash_attention`` (BSHD), ``decode_attention`` (one query token over the
+(B, Sc, KVH, hd) cache) and ``mlstm_chunk`` ((B, H, L, hd)) dispatch on the
+tensor's device: a CUDA tensor goes to the hand-written kernel
+(``flash_attention_bhsd``, ``decode_attention_packed``,
+``mlstm_chunk_step``), a CPU tensor to its plain version
+(``attention_plain``, ``decode_attention_plain``, ``mlstm_chunk_plain``).
+There is no other switch, and a CUDA tensor never reaches a plain version
+through these functions.  ``flash_attention_plain``,
+``decode_attention_plain`` and ``mlstm_chunk_plain`` run the plain version
+on any device, for holding the kernel against it.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import mlstm_scan
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention_bhsd)
@@ -48,6 +52,34 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           window: Optional[int] = None) -> torch.Tensor:
     """``flash_attention`` through the plain version on any device."""
     return _bshd(attention_plain, q, k, v, causal, window)
+
+
+def _packed(fn, q, k, v, valid: int) -> torch.Tensor:
+    """Run a packed decode function on the model's tensors: q (B, 1, H, hd)
+    becomes the view (B·KVH, G, hd) (head h = kvh·G + g); the cache stays
+    (B, Sc, KVH, hd) and is read in place, never transposed or copied."""
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    out = fn(q.reshape(b * kvh, h // kvh, hd), k, v, valid, num_heads=h,
+             num_kv_heads=kvh)
+    return out.reshape(b, 1, h, hd)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: int) -> torch.Tensor:
+    """q: (B, 1, H, hd); k, v: (B, Sc, KVH, hd); valid: host int, the
+    number of leading valid cache slots -> (B, 1, H, hd)."""
+    if q.device.type == "cuda":
+        return _packed(decode_mod.decode_attention_packed, q, k, v, valid)
+    if q.device.type == "cpu":
+        return _packed(decode_mod.decode_attention_plain, q, k, v, valid)
+    raise ValueError(f"no decode attention path for device {q.device}")
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, valid: int) -> torch.Tensor:
+    """``decode_attention`` through the plain version on any device."""
+    return _packed(decode_mod.decode_attention_plain, q, k, v, valid)
 
 
 def _bh(fn, q, k, v, i_raw, f_raw, c, n, m):

@@ -1,4 +1,6 @@
-from repro_torch.models.attention import KVCache, attn_forward, make_kv_cache
+from repro_torch.models.attention import (KVCache, attn_forward,
+                                          cache_write, decode_attn,
+                                          make_kv_cache)
 from repro_torch.models.transformer import (
     ModelCache,
     Transformer,
@@ -11,11 +13,14 @@ from repro_torch.models.xlstm import (
     SLSTMState,
     make_mlstm_state,
     make_slstm_state,
+    mlstm_decode,
     mlstm_mix,
+    slstm_decode,
     slstm_mix,
 )
 
 __all__ = ["KVCache", "MLSTM_CHUNK", "MLSTMState", "ModelCache",
-           "SLSTMState", "Transformer", "attn_forward", "decode_cache_len",
-           "from_jax_params", "make_kv_cache", "make_mlstm_state",
-           "make_slstm_state", "mlstm_mix", "slstm_mix"]
+           "SLSTMState", "Transformer", "attn_forward", "cache_write",
+           "decode_attn", "decode_cache_len", "from_jax_params",
+           "make_kv_cache", "make_mlstm_state", "make_slstm_state",
+           "mlstm_decode", "mlstm_mix", "slstm_decode", "slstm_mix"]

@@ -1,8 +1,14 @@
 """Attention sub-block: GQA/MHA projections, qk-norm, RoPE, KV cache.
 
-Attention itself goes through ``kernels.ops.flash_attention`` (the Hopper
-kernel on the card, its plain version on the CPU) unless the caller hands
-another function of the same signature as ``attention``.
+Prefill attention goes through ``kernels.ops.flash_attention`` and decode
+attention through ``kernels.ops.decode_attention`` (the Hopper kernels on
+the card, their plain versions on the CPU) unless the caller hands another
+function of the same signature as ``attention`` or ``decode_attention``.
+
+Unlike the reference, which is functional, a decode step writes the new
+token's k/v into the cache it is handed, in place (``cache_write``): a
+copy of every layer's cache at every step would cost more than the
+attention itself.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, head_rms_norm
 
 AttentionFn = Callable[..., torch.Tensor]
+DecodeAttentionFn = Callable[..., torch.Tensor]
 
 
 class KVCache(NamedTuple):
@@ -76,20 +83,51 @@ def prefill_cache(k: torch.Tensor, v: torch.Tensor,
     return KVCache(kfull, vfull)
 
 
+def cache_write(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                pos: int) -> KVCache:
+    """Write one token's k/v (B, 1, KVH, hd) at ring slot ``pos % Sc``, in
+    place; returns ``cache`` itself."""
+    slot = pos % cache.k.shape[1]
+    cache.k[:, slot:slot + 1] = k_new
+    cache.v[:, slot:slot + 1] = v_new
+    return cache
+
+
+def decode_attn(q: torch.Tensor, cache: KVCache, pos: int,
+                decode_attention: DecodeAttentionFn = ops.decode_attention
+                ) -> torch.Tensor:
+    """q: (B, 1, H, hd) against ``cache`` (B, Sc, KVH, hd); ``pos`` is the
+    number of tokens written so far, this step's included, so slots below
+    ``min(pos, Sc)`` are valid (a ring slot i holds a token once i < pos)."""
+    return decode_attention(q, cache.k, cache.v, min(pos, cache.k.shape[1]))
+
+
 def attn_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor],
                  cfg: ModelConfig, *, positions: torch.Tensor, mode: str,
-                 cache: Optional[KVCache] = None,
-                 attention: AttentionFn = ops.flash_attention):
-    """Self-attention sub-block for ``mode`` "prefill" or "train".
+                 cache: Optional[KVCache] = None, pos: Optional[int] = None,
+                 attention: AttentionFn = ops.flash_attention,
+                 decode_attention: DecodeAttentionFn = ops.decode_attention):
+    """Self-attention sub-block for ``mode`` "prefill", "train" or
+    "decode".
 
     Returns (out (B,S,d), new_cache or None).  Prefill builds the decode
-    cache, sized to x's sequence unless ``cache`` gives its length.
+    cache, sized to x's sequence unless ``cache`` gives its length.  Decode
+    takes x (B, 1, d) at absolute position ``pos`` (a host int; RoPE reads
+    ``positions``), writes its k/v into ``cache`` in place and attends over
+    the cache; the returned cache is ``cache``.
     """
-    if mode not in ("prefill", "train"):
-        raise NotImplementedError(f"attention mode {mode!r} is not ported")
     b, s, _ = x.shape
     q, k, v = project_qkv(x, p, cfg, positions)
-    out = attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
-    new_cache = prefill_cache(k, v, cache) if mode == "prefill" else None
+    if mode == "decode":
+        if cache is None or pos is None:
+            raise ValueError("decode needs the cache and pos")
+        new_cache = cache_write(cache, k, v, pos)
+        out = decode_attn(q, new_cache, pos + 1, decode_attention)
+    elif mode in ("prefill", "train"):
+        out = attention(q, k, v, causal=cfg.causal,
+                        window=cfg.sliding_window)
+        new_cache = prefill_cache(k, v, cache) if mode == "prefill" else None
+    else:
+        raise ValueError(f"attention mode {mode!r}")
     out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return out @ p["wo"], new_cache

@@ -3,7 +3,10 @@ xLSTM blocks (MLSTM, SLSTM) with none.
 
 The port of ``repro/models/transformer.py`` for the architectures whose
 patterns are made of those kinds: the serving path's qwen3-0.6b and
-qwen1.5-0.5b (``(ATTN,)``, dense MLP) and xlstm-1.3b (7 MLSTM + 1 SLSTM).
+qwen1.5-0.5b (``(ATTN,)``, dense MLP), the sliding-window starcoder2-3b
+(``(ATTN,)``, dense MLP, window 4096) and xlstm-1.3b (7 MLSTM + 1 SLSTM).
+Entry points: ``serve_prefill`` (the prompt) and ``serve_decode`` (one
+token per sequence after it).
 The reference scans one superblock over stacked parameters; here the
 layers are a plain Python loop over a ``ModuleList``, layer ``li`` of
 kind ``block_pattern[li % period]``.
@@ -25,7 +28,8 @@ from repro_torch.configs.base import ATTN, MLSTM, SLSTM, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.attention import AttentionFn, KVCache
+from repro_torch.models.attention import (AttentionFn, DecodeAttentionFn,
+                                          KVCache)
 from repro_torch.models.common import (dense_init, embed_init,
                                        resolve_device, rms_norm, swiglu_mlp)
 from repro_torch.models.xlstm import MLSTMFn, MLSTMState, SLSTMState
@@ -84,7 +88,7 @@ def _layer_shapes(cfg: ModelConfig, kind: str, mlp_kind: str) -> dict:
 
 
 class Transformer(nn.Module):
-    """Parameters of one model, and its prefill entry point.
+    """Parameters of one model, and its prefill and decode entry points.
 
     Constructed from a seed (``torch.Generator`` on the target device) or,
     through ``from_jax_params``, from the reference's parameters.
@@ -169,21 +173,29 @@ class Transformer(nn.Module):
                                                          self.device))
         return caches
 
-    def _prefill_block(self, h: torch.Tensor, p: Mapping[str, torch.Tensor],
-                       kind: str, mlp_kind: str, *, positions,
-                       cache: LayerState, attention: AttentionFn,
-                       mlstm: MLSTMFn):
+    def _block(self, h: torch.Tensor, p: Mapping[str, torch.Tensor],
+               kind: str, mlp_kind: str, *, mode: str, positions,
+               cache: LayerState, pos: Optional[int] = None,
+               attention: AttentionFn = ops.flash_attention,
+               decode_attention: DecodeAttentionFn = ops.decode_attention,
+               mlstm: MLSTMFn = ops.mlstm_chunk):
+        """One layer, ``mode`` "prefill" (the segment) or "decode" (one
+        token at position ``pos``)."""
         cfg = self.cfg
         x = rms_norm(h, p["norm1"], cfg.norm_eps)
+        decode = mode == "decode"
         if kind == ATTN:
             out, new_cache = attn_mod.attn_forward(
-                x, p, cfg, positions=positions, mode="prefill", cache=cache,
-                attention=attention)
+                x, p, cfg, positions=positions, mode=mode, cache=cache,
+                pos=pos, attention=attention,
+                decode_attention=decode_attention)
         elif kind == MLSTM:
-            out, new_cache = xlstm_mod.mlstm_mix(x, p, cfg, cache,
-                                                 mlstm=mlstm)
+            out, new_cache = xlstm_mod.mlstm_decode(x, p, cfg, cache) \
+                if decode else xlstm_mod.mlstm_mix(x, p, cfg, cache,
+                                                   mlstm=mlstm)
         else:
-            out, new_cache = xlstm_mod.slstm_mix(x, p, cfg, cache)
+            out, new_cache = (xlstm_mod.slstm_decode if decode
+                              else xlstm_mod.slstm_mix)(x, p, cfg, cache)
         h = h + out
         if mlp_kind == "dense":
             x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
@@ -208,13 +220,44 @@ class Transformer(nn.Module):
         new_caches = []
         for p, (kind, mlp_kind), cache in zip(self.layers, self.kinds,
                                                caches):
-            h, c = self._prefill_block(h, p, kind, mlp_kind,
-                                       positions=positions, cache=cache,
-                                       attention=attention, mlstm=mlstm)
+            h, c = self._block(h, p, kind, mlp_kind, mode="prefill",
+                               positions=positions, cache=cache,
+                               attention=attention, mlstm=mlstm)
             new_caches.append(c)
         h = rms_norm(h[:, -1:], self.final_norm, self.cfg.norm_eps)
         logits = self.lm_logits(h)[:, 0]
         return logits, ModelCache(layers=new_caches, pos=s)
+
+    def serve_decode(self, tokens: torch.Tensor, cache: ModelCache,
+                     decode_attention: DecodeAttentionFn =
+                     ops.decode_attention):
+        """One decode step.  tokens: (B,) -> (logits (B, V), ModelCache
+        with pos + 1).
+
+        Runs after ``serve_prefill`` (with ``cache_len`` = prompt + new
+        tokens, or any length for a sliding-window model, whose cache is a
+        ring of the window's size).  The new token sits at absolute
+        position ``cache.pos``: RoPE takes that position, and its k/v go to
+        ring slot ``pos % S_cache``.  Each attention layer's KV cache is
+        updated in place, so the ``cache`` handed in is advanced too and
+        must not be used again; the recurrent layers get new states.
+        ``decode_attention`` replaces the decode attention op (same
+        signature as ``ops.decode_attention``), e.g. by its plain version
+        for a check."""
+        pos = cache.pos
+        positions = torch.full((1, 1), pos, dtype=torch.long,
+                               device=tokens.device)
+        h = self.embed_tokens(tokens[:, None])
+        new_caches = []
+        for p, (kind, mlp_kind), state in zip(self.layers, self.kinds,
+                                               cache.layers):
+            h, c = self._block(h, p, kind, mlp_kind, mode="decode",
+                               positions=positions, cache=state, pos=pos,
+                               decode_attention=decode_attention)
+            new_caches.append(c)
+        h = rms_norm(h, self.final_norm, self.cfg.norm_eps)
+        logits = self.lm_logits(h)[:, 0]
+        return logits, ModelCache(layers=new_caches, pos=pos + 1)
 
 
 def from_jax_params(tree: Mapping, cfg: ModelConfig, *, device=None,

@@ -1,13 +1,15 @@
 """xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) and sLSTM
 (scalar memory, sequential) [arXiv:2405.04517].
 
-The port of ``repro/models/xlstm.py`` (prefill path).  The mLSTM
+The port of ``repro/models/xlstm.py``, prefill and decode.  The mLSTM
 recurrence runs in the chunkwise form, each chunk through
 ``kernels.ops.mlstm_chunk`` (the Hopper kernel on the card, its plain
 version on the CPU) unless the caller hands another function of the same
 signature as ``mlstm``; the carry (C, n, m) crosses chunks in fp32.  The
 sLSTM keeps its sequential scan as a plain Python loop over the sequence:
-it is no Pallas kernel in the reference either.
+it is no Pallas kernel in the reference either.  A decode step
+(``mlstm_decode``, ``slstm_decode``) is the single-step recurrence in plain
+torch, as in the reference, which has no kernel for it.
 
 Parameters are the reference's, in its layout; the gate weights and
 biases (``FP32_PARAMS``) stay float32 in a bf16 model, as there.
@@ -136,6 +138,35 @@ def mlstm_mix(x: torch.Tensor, p, cfg: ModelConfig, state: MLSTMState,
     return hflat @ p["out_proj"], MLSTMState(c=c, n=n, m=m, conv=new_tail)
 
 
+def mlstm_decode(x: torch.Tensor, p, cfg: ModelConfig, state: MLSTMState
+                 ) -> Tuple[torch.Tensor, MLSTMState]:
+    """Single-token recurrent step.  x: (B, 1, d).  Returns a new state
+    (the one handed in is left as it was)."""
+    b = x.shape[0]
+    inner = _mlstm_dims(cfg)[0]
+    x_m, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xc, new_tail = _conv(x_m, state.conv, p["conv_w"], p["conv_b"])
+    xc = F.silu(xc.float()).to(x.dtype)
+    q, k, v, i_raw, f_raw = _mlstm_qkv_gates(x_m, xc, p, cfg)
+    q32, k32, v32 = (t[:, :, 0].float() for t in (q, k, v))   # (B, H, hd)
+    i_r, f_r = i_raw[..., 0], f_raw[..., 0]                   # (B, H)
+    logf = F.logsigmoid(f_r)
+    m_new = torch.maximum(logf + state.m, i_r)
+    f_s = torch.exp(logf + state.m - m_new)
+    i_s = torch.exp(i_r - m_new)
+    c = f_s[..., None, None] * state.c + i_s[..., None, None] * (
+        k32[..., :, None] * v32[..., None, :])
+    n = f_s[..., None] * state.n + i_s[..., None] * k32
+    num = torch.einsum("bhe,bhef->bhf", q32, c)
+    den = torch.maximum(torch.einsum("bhe,bhe->bh", q32, n).abs(),
+                        torch.exp(-m_new))
+    hvec = (num / den[..., None]).reshape(b, 1, inner).to(x.dtype)
+    hvec = rms_norm(hvec, p["out_norm"], cfg.norm_eps)
+    hvec = hvec * F.silu(z.float()).to(x.dtype)
+    return hvec @ p["out_proj"], MLSTMState(c=c, n=n, m=m_new,
+                                            conv=new_tail)
+
+
 # ==========================================================================
 # sLSTM
 # ==========================================================================
@@ -216,3 +247,10 @@ def slstm_mix(x: torch.Tensor, p, cfg: ModelConfig, state: SLSTMState
     u = h @ p["ff_up"]
     hf = F.gelu(g.float(), approximate="tanh").to(x.dtype) * u
     return hf @ p["ff_down"], state_f
+
+
+def slstm_decode(x: torch.Tensor, p, cfg: ModelConfig, state: SLSTMState
+                 ) -> Tuple[torch.Tensor, SLSTMState]:
+    """Single-token step: ``slstm_mix`` over one step, as in the
+    reference.  x: (B, 1, d)."""
+    return slstm_mix(x, p, cfg, state)

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import mlstm_scan, ops
 
 pytestmark = pytest.mark.cuda
@@ -173,3 +174,88 @@ def test_cuda_xlstm_prefill_runs_the_kernel_per_layer_and_chunk(card):
     assert torch.equal(logits.argmax(-1), plain.argmax(-1))
     np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(),
                                atol=2e-3, rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,sc,h,kvh,hd,valid,dtype", [
+    (4, 2080, 16, 8, 128, 2049, torch.bfloat16),   # qwen3-0.6b's step
+    (4, 2080, 16, 16, 64, 2080, torch.bfloat16),   # qwen1.5-0.5b's
+    (4, 4096, 24, 2, 128, 4096, torch.bfloat16),   # starcoder2-3b's ring
+    (2, 100, 24, 2, 128, 61, torch.float32),       # split, ragged tile
+    (2, 7, 4, 2, 64, 7, torch.float32),
+    (3, 40, 8, 1, 64, 1, torch.float32),
+    (2, 9, 4, 2, 64, 0, torch.bfloat16),           # no valid slot: zeros
+])
+def test_cuda_decode_kernel_matches_plain(card, b, sc, h, kvh, hd, valid,
+                                          dtype):
+    """The kernel on the model's (B, Sc, KVH, hd) cache, read in place,
+    against the plain version: 3e-3 in fp32 and 2e-2 in bf16, the
+    reference's decode tolerances; both compute in fp32."""
+    q = torch.randn(b, 1, h, hd, generator=card, device="cuda").to(dtype)
+    k, v = (torch.randn(b, sc, kvh, hd, generator=card,
+                        device="cuda").to(dtype) for _ in range(2))
+    before = dec.LAUNCHES
+    out = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert dec.LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 3e-3
+    np.testing.assert_allclose(
+        out.float().cpu().numpy(),
+        ops.decode_attention_plain(q, k, v, valid).float().cpu().numpy(),
+        atol=tol, rtol=tol)
+    if valid == 0:
+        assert not out.any()
+
+
+def test_cuda_decode_kernel_refuses_unsupported_sizes(card):
+    def args(g, hd, sc=16, dtype=torch.bfloat16):
+        q = torch.zeros(2 * 2, g, hd, device="cuda", dtype=dtype)
+        k = torch.zeros(2, sc, 2, hd, device="cuda", dtype=dtype)
+        return q, k
+    q, k = args(2, 48)
+    with pytest.raises(ValueError, match="head_dim"):
+        dec.decode_attention_packed(q, k, k, 4, num_heads=4, num_kv_heads=2)
+    q, k = args(17, 64)
+    with pytest.raises(ValueError, match="at most"):
+        dec.decode_attention_packed(q, k, k, 4, num_heads=34, num_kv_heads=2)
+    q, k = args(2, 64)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        dec.decode_attention_packed(q.half(), k.half(), k.half(), 4,
+                                    num_heads=4, num_kv_heads=2)
+    with pytest.raises(ValueError, match="host int"):
+        dec.decode_attention_packed(q, k, k, torch.tensor(4, device="cuda"),
+                                    num_heads=4, num_kv_heads=2)
+    buf = torch.zeros(2, 16, 2, 65, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        dec.decode_attention_packed(q, buf[..., 1:], buf[..., 1:], 4,
+                                    num_heads=4, num_kv_heads=2)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "starcoder2-3b"])
+def test_cuda_serve_decode_runs_the_kernel_once_per_layer_and_step(card,
+                                                                   arch):
+    """Reduced models in fp32: 3 decode steps launch the kernel once per
+    attention layer per step, and give the argmax of the plain op's run
+    (each side from its own prefill: a decode step advances its cache in
+    place).  starcoder2-3b's 64-token prompt fills its ring."""
+    from repro_torch.models import Transformer
+    cfg = get_config(arch, reduced=True)
+    model = Transformer(cfg, dtype=torch.float32, seed=0)
+    s = cfg.sliding_window or 40
+    tokens = torch.randint(0, cfg.vocab_size, (2, s), generator=card,
+                           device="cuda", dtype=torch.int32)
+    steps = torch.randint(0, cfg.vocab_size, (3, 2), generator=card,
+                          device="cuda", dtype=torch.int32)
+    with torch.inference_mode():
+        _, cache = model.serve_prefill(tokens, cache_len=s + 3)
+        _, plain_cache = model.serve_prefill(tokens, cache_len=s + 3)
+        before = dec.LAUNCHES
+        for t in steps:
+            logits, cache = model.serve_decode(t, cache)
+            plain, plain_cache = model.serve_decode(
+                t, plain_cache, decode_attention=ops.decode_attention_plain)
+            assert torch.equal(logits.argmax(-1), plain.argmax(-1))
+        launched = dec.LAUNCHES - before
+    assert launched == cfg.num_layers * 3
+    assert cache.pos == s + 3
+    assert torch.isfinite(logits).all()

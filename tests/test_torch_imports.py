@@ -53,6 +53,14 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
         "                      device='cpu')\n"
         "out = st.process(torch.zeros(2, 8, dtype=torch.int32))\n"
         "assert out.shape == (2,) and out.dtype == torch.int32\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import Transformer\n"
+        "m = Transformer(get_config('starcoder2-3b', reduced=True),\n"
+        "                device='cpu', dtype=torch.float32)\n"
+        "_, c = m.serve_prefill(torch.zeros(1, 8, dtype=torch.int32),\n"
+        "                       cache_len=10)\n"
+        "lg, c = m.serve_decode(torch.zeros(1, dtype=torch.int32), c)\n"
+        "assert lg.shape == (1, 512) and c.pos == 9\n"
         "assert sys.modules['jax'] is None and sys.modules['repro'] is None\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
