@@ -41,10 +41,20 @@ Phases, each printing one line per case:
      in fp32 prefill + teacher-forced decode against the prefill of the
      whole sequence (``decode_consistency``: qwen3-0.6b, and starcoder2-3b
      decoding past its window through the ring);
+  8. Mamba and jamba-v0.1-52b: the selective-scan kernel against its plain
+     version (``check_ssm``: B 1/4, L 1/7/256, D 8/100/8192, ST 4/16, and
+     D*ST odd or misaligned for the scalar path), its times at Jamba's
+     shapes (``time_ssm``: B 4 and 1, L 256, D 8192, ST 16), then
+     jamba-v0.1-52b at full width and 16 of its 32 layers in bf16
+     (``jamba_memory``, ``prefill`` at B 4, S 2048 with every scan call of
+     a first run held against the plain version, ``decode`` B 4, prompt
+     2048, 32 steps) and in fp32 at one superblock
+     (``decode_consistency``, B 1, prompt 512 + 16 steps);
 then a ``{"kernels": [...]}`` line (``launches``: each kernel's launches
 on its path, counted from 0 just before the path and read just after:
 the served traces for the prefill kernels, the timed decode steps for
-the decode kernel; the other paths' counts beside them), the
+the decode kernel, the timed jamba prefill for the scan kernel; the other
+paths' counts beside them), the
 ``nvidia-smi`` line again, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without that line.  It imports nothing of jax or of
@@ -52,6 +62,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -102,6 +113,28 @@ DECODE_KERNELS = ("decode_attention_kernel",
 # layer's output in fp32; a wrong ring slot, position or mask moves the
 # logits by O(1)
 DECODE_LOGIT_REL_TOL = 2e-3
+# selective scan, kernel vs plain (both fp32 from the same inputs; both
+# round each step's product and sum separately, so they agree bit for
+# bit): the reference's tolerances for the Pallas scan against its oracle
+# (tests/test_kernels.py), |diff| <= atol + rtol |ref|
+SSM_TOL = (1e-4, 1e-3)
+SSM_KERNEL = "ssm_scan_kernel"    # ssm_scan_kernel<float4> / <float>
+# fp32 rates outside the tensor cores (NVIDIA's data sheets), by part
+FP32_FLOPS = {"PCIe": 51e12, "NVL": 60e12, "SXM": 67e12}
+# torch.profiler loses the first device records of a session, more the more
+# the process has traced (none early on; 10 of 10 back-to-back scan
+# launches late in this script, on an H100 with torch 2.11): each profile
+# first launches PROFILE_LEAD_IN spin kernels, left out of every total,
+# and is kept only if some of them were recorded.  A profile that missed
+# launches is taken again, up to PROFILE_TRIES times
+PROFILE_LEAD_IN = 256
+LEAD_IN_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
+PROFILE_TRIES = 3
+LEAD_IN_LOST: list = []             # lead-in records lost, per profile
+JAMBA = "jamba-v0.1-52b"
+JAMBA_LAYERS = 16
+JAMBA_CUT = ("num_layers 32 -> 16 (2 of 4 superblocks): 104 GB of bf16 "
+             "weights do not fit one 80 GB card")
 
 
 def emit(obj) -> None:
@@ -152,6 +185,8 @@ CHECK_CASES = [
     (4, 16, 16, 16, 16, 64, True, None, torch.bfloat16),
     (4, 2048, 2048, 16, 8, 128, True, None, torch.bfloat16),
     (4, 2048, 2048, 16, 16, 64, True, None, torch.bfloat16),
+    # jamba-v0.1-52b's prefill: 32 query heads over 8 KV heads, no RoPE
+    (4, 2048, 2048, 32, 8, 128, True, None, torch.bfloat16),
     # ragged and odd cases
     (2, 1, 1, 4, 2, 32, True, None, torch.float32),
     (2, 1, 77, 4, 2, 16, True, None, torch.float32),
@@ -333,11 +368,22 @@ def check_mlstm(ms) -> float:
 
 
 def kernel_device_ms(fn, names, launches: int) -> dict:
-    """Device ms per call of each kernel named in ``names`` (the passes of
-    one entry point) over ``launches`` profiled calls of ``fn``."""
-    _, kernels = device_profile(lambda: [fn() for _ in range(launches)])
-    return {n: sum(t for key, _, t in kernels if n in key) / launches
-            for n in names}
+    """Device ms per launch of each kernel named in ``names`` (the passes
+    of one entry point) over ``launches`` profiled calls of ``fn``; the
+    profile must record all ``launches`` of the first pass."""
+    def calls():
+        for _ in range(launches):
+            fn()
+    _, kernels = device_profile(calls, expect={names[0]: launches})
+    out = {}
+    for n in names:
+        rows = [(cnt, t) for key, cnt, t in kernels if n in key]
+        recorded = sum(cnt for cnt, _ in rows)
+        if not recorded:
+            raise AssertionError(f"the profiler recorded no {n} launch of "
+                                 f"{launches}: {kernels[:4]}")
+        out[n] = sum(t for _, t in rows) / recorded
+    return out
 
 
 def time_mlstm(ms, peaks) -> list:
@@ -408,7 +454,8 @@ def prefill_full_width(fa, ops, Transformer, get_config) -> int:
             launches = fa.LAUNCHES
             total += launches
             device_ms, kernels = device_profile(
-                lambda: model.serve_prefill(tokens))
+                lambda: model.serve_prefill(tokens),
+                expect={ATTN_KERNEL: cfg.num_layers})
             plain, _ = model.serve_prefill(
                 tokens, attention=ops.flash_attention_plain)
             torch.cuda.synchronize()
@@ -501,7 +548,8 @@ def prefill_xlstm(ms, ops, Transformer, get_config) -> int:
         # the sLSTM loop dispatches S x 6 x ~20 small ops from the host:
         # the profile is taken at S = 256 (one chunk per layer)
         device_ms, kernels = device_profile(
-            lambda: model.serve_prefill(tokens[:, :s_prof]))
+            lambda: model.serve_prefill(tokens[:, :s_prof]),
+            expect={MLSTM_KERNELS[0]: n_mlstm * (s_prof // 256)})
         torch.cuda.synchronize()
     finite = bool(torch.isfinite(logits).all())
     scale = plain.float().abs().max().item()
@@ -742,86 +790,105 @@ DECODE_RUNS = [("qwen3-0.6b", 2048, 32, 0), ("qwen1.5-0.5b", 2048, 32, 1),
                ("starcoder2-3b", 4096, 64, 4), ("xlstm-1.3b", 256, 16, 3)]
 
 
+def first_attention_layer(model):
+    """Index of the model's first attention layer, or None."""
+    from repro_torch.configs import ATTN
+    return next((i for i, (kind, _) in enumerate(model.kinds)
+                 if kind == ATTN), None)
+
+
+def decode_model(dec, ops, model, prompt: int, steps: int, gen,
+                 b: int = 4, **extra) -> int:
+    """``serve_decode`` of ``model`` in bf16 after its prefill: a first
+    run with every decode kernel call held against the plain version, a
+    timed run (the count from 0 just before its steps) and a profiled
+    one; returns the decode kernel's launches in the timed steps."""
+    from repro_torch.configs import ATTN
+    cfg = model.cfg
+    n_attn = cfg.block_pattern.count(ATTN) * cfg.num_superblocks
+    ai = first_attention_layer(model)
+    tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    errs: dict = {}
+    with torch.inference_mode():
+        # run 1: every kernel call held against the plain version
+        logits, cache = model.serve_prefill(tokens, cache_len=prompt + steps)
+        _, cache, fed_checked = decode_steps(
+            model, logits, cache, steps,
+            decode_attention=checking_decode_op(ops, errs))
+        del cache
+        # run 2, timed: the counts from 0 just before the steps
+        logits, cache = model.serve_prefill(tokens, cache_len=prompt + steps)
+        s_cache = cache.layers[ai].k.shape[1] if n_attn else None
+        k_ptr = cache.layers[ai].k.data_ptr() if n_attn else None
+        torch.cuda.synchronize()
+        dec.LAUNCHES = 0
+        t0 = time.perf_counter()
+        last, cache, fed = decode_steps(model, logits, cache, steps)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dec.LAUNCHES
+        in_place = k_ptr is None or cache.layers[ai].k.data_ptr() == k_ptr
+        del cache
+        # run 3, profiled: device time of a few steps
+        prof_steps = min(8, steps)
+        logits, cache = model.serve_prefill(tokens, cache_len=prompt + steps)
+        torch.cuda.synchronize()
+        device_ms, kernels = device_profile(
+            lambda: decode_steps(model, logits, cache, prof_steps),
+            expect={DECODE_KERNELS[0]: n_attn * prof_steps})
+        del cache
+    step_ms = wall_s * 1e3 / steps
+    dev_step_ms = device_ms / prof_steps
+    decode_kernel_ms = sum(t for name, _, t in kernels
+                           if any(k in name for k in DECODE_KERNELS))
+    finite = bool(torch.isfinite(last).all())
+    emit({"phase": "decode", "arch": cfg.name, **extra, "b": b,
+          "prompt": prompt, "steps": steps, "layers": cfg.num_layers,
+          "attention_layers": n_attn, "s_cache": s_cache,
+          "ms_per_step": step_ms, "device_ms_per_step": dev_step_ms,
+          "device_idle_share": max(0.0, 1 - dev_step_ms / step_ms),
+          "device_launches_per_step":
+              sum(n for _, n, _ in kernels) / prof_steps,
+          "tokens_per_s": b * steps / wall_s,
+          "decode_kernel_launches": launches,
+          "decode_kernel_ms_per_step": decode_kernel_ms / prof_steps,
+          "decode_kernel_share": decode_kernel_ms / device_ms,
+          "kernel_errs_vs_plain": errs, "cache_updated_in_place":
+              in_place, "finite": finite,
+          "same_tokens_as_checked_run": bool(torch.equal(fed, fed_checked)),
+          "logits_shape": list(last.shape),
+          "top_device_kernels": kernels[:6]})
+    if launches != n_attn * steps:
+        raise AssertionError(f"{cfg.name}: {launches} decode kernel "
+                             f"launches for {n_attn} attention layers x "
+                             f"{steps} steps")
+    if n_attn and errs.get("calls") != n_attn * steps:
+        raise AssertionError(f"{cfg.name}: {errs.get('calls')} checked calls")
+    if n_attn and not errs["worst_ratio"] <= 1.0:
+        raise AssertionError(f"{cfg.name}: a decode kernel call disagrees "
+                             f"with the plain version: {errs}")
+    if last.shape != (b, cfg.vocab_size) or not finite or not in_place:
+        raise AssertionError(f"{cfg.name}: bad decode logits or cache")
+    return launches
+
+
+# (model, prompt, decode steps, seed): B = 4 for each
+DECODE_RUNS = [("qwen3-0.6b", 2048, 32, 0), ("qwen1.5-0.5b", 2048, 32, 1),
+               ("starcoder2-3b", 4096, 64, 4), ("xlstm-1.3b", 256, 16, 3)]
+
+
 def decode_full_width(dec, ops, Transformer, get_config) -> dict:
     """``serve_decode`` at full width and depth in bf16 after each model's
     prefill; returns the decode kernel's launches in each model's timed
     steps."""
-    from repro_torch.configs import ATTN
     gen = torch.Generator(device="cuda").manual_seed(10)
-    b = 4
     launches = {}
     for arch, prompt, steps, seed in DECODE_RUNS:
-        cfg = get_config(arch)
-        n_attn = cfg.block_pattern.count(ATTN) * cfg.num_superblocks
-        model = Transformer(cfg, device="cuda", dtype=torch.bfloat16,
-                            seed=seed)
-        tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
-                               device="cuda", dtype=torch.int32)
-        errs: dict = {}
-        with torch.inference_mode():
-            # run 1: every kernel call held against the plain version
-            logits, cache = model.serve_prefill(tokens,
-                                                cache_len=prompt + steps)
-            _, cache, fed_checked = decode_steps(
-                model, logits, cache, steps,
-                decode_attention=checking_decode_op(ops, errs))
-            del cache
-            # run 2, timed: the counts from 0 just before the steps
-            logits, cache = model.serve_prefill(tokens,
-                                                cache_len=prompt + steps)
-            s_cache = cache.layers[0].k.shape[1] if n_attn else None
-            k_ptr = cache.layers[0].k.data_ptr() if n_attn else None
-            torch.cuda.synchronize()
-            dec.LAUNCHES = 0
-            t0 = time.perf_counter()
-            last, cache, fed = decode_steps(model, logits, cache, steps)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-            launches[arch] = dec.LAUNCHES
-            in_place = k_ptr is None or cache.layers[0].k.data_ptr() == k_ptr
-            del cache
-            # run 3, profiled: device time of a few steps
-            prof_steps = min(8, steps)
-            logits, cache = model.serve_prefill(tokens,
-                                                cache_len=prompt + steps)
-            torch.cuda.synchronize()
-            device_ms, kernels = device_profile(
-                lambda: decode_steps(model, logits, cache, prof_steps))
-            del cache
-        step_ms = wall_s * 1e3 / steps
-        dev_step_ms = device_ms / prof_steps
-        decode_kernel_ms = sum(t for name, _, t in kernels
-                               if any(k in name for k in DECODE_KERNELS))
-        finite = bool(torch.isfinite(last).all())
-        emit({"phase": "decode", "arch": arch, "b": b, "prompt": prompt,
-              "steps": steps, "layers": cfg.num_layers,
-              "attention_layers": n_attn, "s_cache": s_cache,
-              "ms_per_step": step_ms, "device_ms_per_step": dev_step_ms,
-              "device_idle_share": max(0.0, 1 - dev_step_ms / step_ms),
-              "device_launches_per_step":
-                  sum(n for _, n, _ in kernels) / prof_steps,
-              "tokens_per_s": b * steps / wall_s,
-              "decode_kernel_launches": launches[arch],
-              "decode_kernel_ms_per_step": decode_kernel_ms / prof_steps,
-              "decode_kernel_share": decode_kernel_ms / device_ms,
-              "kernel_errs_vs_plain": errs, "cache_updated_in_place":
-                  in_place, "finite": finite,
-              "same_tokens_as_checked_run": bool(torch.equal(
-                  fed, fed_checked)),
-              "logits_shape": list(last.shape),
-              "top_device_kernels": kernels[:6]})
-        if launches[arch] != n_attn * steps:
-            raise AssertionError(f"{arch}: {launches[arch]} decode kernel "
-                                 f"launches for {n_attn} attention layers "
-                                 f"x {steps} steps")
-        if n_attn and errs.get("calls") != n_attn * steps:
-            raise AssertionError(f"{arch}: {errs.get('calls')} checked calls")
-        if n_attn and not errs["worst_ratio"] <= 1.0:
-            raise AssertionError(f"{arch}: a decode kernel call disagrees "
-                                 f"with the plain version: {errs}")
-        if last.shape != (b, cfg.vocab_size) or not finite or not in_place:
-            raise AssertionError(f"{arch}: bad decode logits or cache")
-        del model, logits, last
+        model = Transformer(get_config(arch), device="cuda",
+                            dtype=torch.bfloat16, seed=seed)
+        launches[arch] = decode_model(dec, ops, model, prompt, steps, gen)
+        del model
         torch.cuda.empty_cache()
     return launches
 
@@ -833,19 +900,20 @@ CONSISTENCY_RUNS = [("qwen3-0.6b", 2, 512, 16),
                     ("starcoder2-3b", 1, 4092, 12)]
 
 
-def decode_consistency(Transformer, get_config) -> list:
-    """In fp32 at full width and depth: prefill(S) and N teacher-forced
-    decode steps give the last logits of prefill(S + N)."""
-    gen = torch.Generator(device="cuda").manual_seed(11)
+def decode_consistency(Transformer, runs, seed: int = 11) -> list:
+    """In fp32: prefill(S) and N teacher-forced decode steps give the last
+    logits of prefill(S + N).  ``runs``: (config, batch, prompt, decode
+    steps, note) each."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for arch, b, s, n in CONSISTENCY_RUNS:
-        cfg = get_config(arch)
+    for cfg, b, s, n, note in runs:
         model = Transformer(cfg, device="cuda", dtype=torch.float32, seed=5)
+        ai = first_attention_layer(model)
         tokens = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen,
                                device="cuda", dtype=torch.int32)
         with torch.inference_mode():
             full, full_cache = model.serve_prefill(tokens)
-            s_cache = full_cache.layers[0].k.shape[1]
+            s_cache = full_cache.layers[ai].k.shape[1]
             del full_cache
             logits, cache = model.serve_prefill(tokens[:, :s],
                                                 cache_len=s + n)
@@ -854,20 +922,276 @@ def decode_consistency(Transformer, get_config) -> list:
             torch.cuda.synchronize()
         same = bool(torch.equal(logits.argmax(-1), full.argmax(-1)))
         rel = (logits - full).abs().max().item() / full.abs().max().item()
-        row = {"phase": "decode_consistency", "arch": arch, "dtype": "float32",
+        row = {"phase": "decode_consistency", "arch": cfg.name,
+               "dtype": "float32", "layers": cfg.num_layers, **note,
                "b": b, "prompt": s, "decode_steps": n,
                "window": cfg.sliding_window, "s_cache": s_cache,
-               "ring_wrapped": s + n > cache.layers[0].k.shape[1],
+               "ring_wrapped": s + n > cache.layers[ai].k.shape[1],
                "argmax_equal": same, "max_rel_logit_diff": rel,
                "tol": DECODE_LOGIT_REL_TOL}
         emit(row)
         rows.append(row)
         if not same or not rel <= DECODE_LOGIT_REL_TOL:
-            raise AssertionError(f"{arch}: prefill + decode differs from the "
-                                 f"prefill of the whole sequence: {row}")
+            raise AssertionError(f"{cfg.name}: prefill + decode differs from "
+                                 f"the prefill of the whole sequence: {row}")
         del model, full, logits, cache
         torch.cuda.empty_cache()
     return rows
+
+
+# --------------------------------------------------------------------------
+# phase 8: the selective scan and jamba-v0.1-52b
+# --------------------------------------------------------------------------
+
+# (B, L, D, ST, offset): B 1/4 x L 1/7/256 x D 8/100/8192 x ST 4/16, then
+# the scalar path: D*ST not a multiple of 4, and buffers 4 bytes off the
+# 16-byte alignment of the vector path
+SSM_CASES = [(b, l, d, st, 0) for b in (1, 4) for l in (1, 7, 256)
+             for d in (8, 100, 8192) for st in (4, 16)] \
+    + [(2, 33, 7, 3, 0), (2, 9, 100, 16, 1), (3, 256, 8192, 16, 1)]
+
+
+def ssm_inputs(gen, b, l, d, st, offset=0):
+    """da in (0, 1) and dbx ~ 0.1 N(0, 1), fp32; with ``offset``, each a
+    contiguous view ``offset`` floats into a larger buffer."""
+    n = b * l * d * st
+
+    def buf(t):
+        if not offset:
+            return t
+        out = torch.empty(n + offset, device="cuda")[offset:]
+        return out.view(b, l, d, st).copy_(t)
+    da = torch.sigmoid(rand(gen, (b, l, d, st), torch.float32))
+    dbx = rand(gen, (b, l, d, st), torch.float32) * 0.1
+    return buf(da), buf(dbx)
+
+
+def check_ssm(sm) -> float:
+    """The scan kernel against ``ssm_chunk_scan_plain`` on the card, one
+    line per case; returns the largest error."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    atol, rtol = SSM_TOL
+    worst = 0.0
+    for b, l, d, st, offset in SSM_CASES:
+        da, dbx = ssm_inputs(gen, b, l, d, st, offset)
+        before = sm.LAUNCHES
+        out = sm.ssm_chunk_scan(da, dbx)
+        launched = sm.LAUNCHES - before
+        ref = sm.ssm_chunk_scan_plain(da, dbx)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        err = diff.max().item()
+        ok = out.shape == ref.shape and out.dtype == torch.float32 \
+            and launched == 1 and math.isfinite(err) \
+            and bool((diff <= atol + rtol * ref.abs()).all())
+        emit({"phase": "check_ssm", "b": b, "l": l, "d": d, "st": st,
+              "vector_path": (d * st) % 4 == 0 and offset == 0,
+              "max_abs_err": err, "bit_equal": bool(torch.equal(out, ref)),
+              "atol": atol, "rtol": rtol, "ok": ok})
+        if not ok:
+            raise AssertionError(f"ssm scan kernel disagrees with plain: "
+                                 f"case {(b, l, d, st, offset)}")
+        worst = max(worst, err)
+        del da, dbx, out, ref, diff
+    return worst
+
+
+def time_ssm(sm, part: str, peaks) -> list:
+    """Kernel, plain and device times of the scan at Jamba's chunk (L 256,
+    D 8192, ST 16) at B 4 and B 1, beside the bound.  No single PyTorch
+    call computes this linear recurrence: library none."""
+    _, mem_rate = peaks
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for b in (4, 1):
+        l, d, st = 256, 8192, 16
+        da, dbx = ssm_inputs(gen, b, l, d, st)
+        t_ms = cuda_ms(lambda: sm.ssm_chunk_scan(da, dbx), 20)
+        dev_ms = kernel_device_ms(lambda: sm.ssm_chunk_scan(da, dbx),
+                                  (SSM_KERNEL,), 50)[SSM_KERNEL]
+        plain_ms = cuda_ms(lambda: sm.ssm_chunk_scan_plain(da, dbx), 3, 1)
+        # one multiply and one add per element; da, dbx read once and h
+        # written once, fp32
+        flops = 2 * da.numel()
+        nbytes = 3 * da.numel() * 4
+        t_ops, t_bytes = flops / FP32_FLOPS[part], nbytes / mem_rate
+        row = {"b": b, "l": l, "d": d, "st": st, "dtype": "float32",
+               "ms": t_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+               "library_ms": None, "flops": flops, "bytes": nbytes,
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        row["bound_share"] = row["bound_ms"] / t_ms
+        row["bound_share_device"] = row["bound_ms"] / dev_ms
+        emit({"phase": "time_ssm", **row})
+        rows.append(row)
+        del da, dbx
+        torch.cuda.empty_cache()
+    return rows
+
+
+def checking_attention_op(ops, errs: dict):
+    """An attention op for ``serve_prefill`` that runs the kernel and, on
+    the same inputs, the plain version, held to ``check_kernels``'s two
+    bounds (TOL, ROW_TOL); it keeps in ``errs`` the largest error over all
+    calls, the worst ratio to each bound and the number of calls, and
+    hands the kernel's result on."""
+    def op(q, k, v, *, causal=True, window=None):
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        ref = ops.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window).float()
+        tol, row_tol = TOL[q.dtype], ROW_TOL[q.dtype]
+        diff = (out.float() - ref).abs()
+        row_max = ref.abs().amax(-1, keepdim=True)
+        errs["max_abs_err"] = max(errs.get("max_abs_err", 0.0),
+                                  diff.max().item())
+        errs["worst_ratio"] = max(errs.get("worst_ratio", 0.0),
+                                  (diff / (tol + tol * ref.abs())).max()
+                                  .item())
+        errs["worst_row_ratio"] = max(errs.get("worst_row_ratio", 0.0),
+                                      (diff / (row_tol * row_max)).max()
+                                      .item())
+        errs["calls"] = errs.get("calls", 0) + 1
+        return out
+    return op
+
+
+def checking_ssm_op(ops, errs: dict):
+    """A scan op for ``serve_prefill`` that runs the kernel and, on the
+    same inputs, the plain version; it keeps in ``errs`` the largest error
+    over all calls, its worst ratio to the tolerance (SSM_TOL), the number
+    of calls and of bit-equal calls, and hands the kernel's result on."""
+    atol, rtol = SSM_TOL
+
+    def op(da, dbx):
+        out = ops.ssm_scan(da, dbx)
+        ref = ops.ssm_scan_plain(da, dbx)
+        diff = (out - ref).abs()
+        errs["max_abs_err"] = max(errs.get("max_abs_err", 0.0),
+                                  diff.max().item())
+        errs["worst_ratio"] = max(errs.get("worst_ratio", 0.0),
+                                  (diff / (atol + rtol * ref.abs())).max()
+                                  .item())
+        errs["calls"] = errs.get("calls", 0) + 1
+        errs["bit_equal_calls"] = errs.get("bit_equal_calls", 0) \
+            + int(torch.equal(out, ref))
+        return out
+    return op
+
+
+def jamba_config(get_config, layers: int = JAMBA_LAYERS):
+    """jamba-v0.1-52b at its published width, cut to ``layers`` layers
+    (whole superblocks)."""
+    return dataclasses.replace(get_config(JAMBA), num_layers=layers)
+
+
+def prefill_jamba(sm, fa, ops, Transformer, get_config, param_bytes):
+    """jamba-v0.1-52b at full width, 16 layers, bf16, B 4, S 2048 (8 scan
+    chunks per Mamba layer).  Prints the parameter bytes and the card's
+    free memory before anything is allocated.  Returns the model (for
+    the decode phase) and the kernels' launches in the timed prefill."""
+    from repro_torch.configs import ATTN, MAMBA
+    cfg = jamba_config(get_config)
+    n_mamba = cfg.block_pattern.count(MAMBA) * cfg.num_superblocks
+    n_attn = cfg.block_pattern.count(ATTN) * cfg.num_superblocks
+    b, s = 4, 2048
+    chunks = s // 256
+    gc_collect()
+    free, total = torch.cuda.mem_get_info()
+    need = param_bytes(cfg, torch.bfloat16)
+    emit({"phase": "jamba_memory", "arch": cfg.name, "cut": JAMBA_CUT,
+          "layers": cfg.num_layers, "param_bytes": need,
+          "param_gb": need / 1e9,
+          "full_depth_param_gb": param_bytes(get_config(JAMBA),
+                                             torch.bfloat16) / 1e9,
+          "free_gb": free / 1e9, "total_gb": total / 1e9})
+    if need > free:
+        raise AssertionError(f"{cfg.name}: {need / 1e9} GB of parameters, "
+                             f"{free / 1e9} GB free")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=6)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb = torch.cuda.memory_allocated() / 1e9
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    errs: dict = {}
+    attn_errs: dict = {}
+    with torch.inference_mode():
+        # run 1: every scan and attention call held against the plain
+        # version
+        checked, _ = model.serve_prefill(
+            tokens, ssm=checking_ssm_op(ops, errs),
+            attention=checking_attention_op(ops, attn_errs))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sm.LAUNCHES = fa.LAUNCHES = 0     # the timed prefill only
+        t0 = time.perf_counter()
+        logits, cache = model.serve_prefill(tokens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = {"ssm_chunk_scan": sm.LAUNCHES,
+                    "flash_attention_bhsd": fa.LAUNCHES}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        state_h_shape = list(cache.layers[0].h.shape)
+        del cache
+        plain, _ = model.serve_prefill(tokens, ssm=ops.ssm_scan_plain)
+        device_ms, kernels = device_profile(
+            lambda: model.serve_prefill(tokens),
+            expect={SSM_KERNEL: n_mamba * chunks, ATTN_KERNEL: n_attn})
+    finite = bool(torch.isfinite(logits).all())
+    ids, ids_plain = logits.argmax(-1), plain.argmax(-1)
+    same = bool((ids == ids_plain).all())
+    rel = (logits.float() - plain.float()).abs().max().item() \
+        / plain.float().abs().max().item()
+    ssm_ms = sum(t for name, _, t in kernels if SSM_KERNEL in name)
+    attn_ms = sum(t for name, _, t in kernels if ATTN_KERNEL in name)
+    emit({"phase": "prefill", "arch": cfg.name, "cut": JAMBA_CUT, "b": b,
+          "s": s, "dtype": "bfloat16", "layers": cfg.num_layers,
+          "mamba_layers": n_mamba, "attention_layers": n_attn,
+          "param_gb": param_gb, "peak_gb": peak_gb, "init_s": init_s,
+          "prefill_s": prefill_s, "device_ms": device_ms,
+          "device_idle_share": max(0.0, 1 - device_ms / (prefill_s * 1e3)),
+          "launches": launches,
+          "device_launches": sum(n for _, n, _ in kernels),
+          "ssm_kernel_ms": ssm_ms, "ssm_kernel_share": ssm_ms / device_ms,
+          "attention_kernel_ms": attn_ms,
+          "attention_kernel_share": attn_ms / device_ms,
+          "logits_shape": list(logits.shape), "finite": finite,
+          "ssm_errs_vs_plain": errs, "attention_errs_vs_plain": attn_errs,
+          "checked_run_equal": bool(torch.equal(checked, logits)),
+          "argmax_equal_plain": same, "max_rel_logit_diff_plain": rel,
+          "state_h_shape": state_h_shape,
+          "top_device_kernels": kernels[:8]})
+    if logits.shape != (b, cfg.vocab_size) or not finite:
+        raise AssertionError(f"{cfg.name}: bad logits")
+    if launches["ssm_chunk_scan"] != n_mamba * chunks:
+        raise AssertionError(f"{cfg.name}: {launches['ssm_chunk_scan']} scan "
+                             f"launches for {n_mamba} Mamba layers x "
+                             f"{chunks} chunks")
+    if launches["flash_attention_bhsd"] != n_attn:
+        raise AssertionError(f"{cfg.name}: {launches['flash_attention_bhsd']}"
+                             f" attention launches for {n_attn} layers")
+    if errs.get("calls") != n_mamba * chunks or not errs["worst_ratio"] <= 1:
+        raise AssertionError(f"{cfg.name}: a scan call of the checked run "
+                             f"disagrees with the plain version: {errs}")
+    if attn_errs.get("calls") != n_attn or not attn_errs["worst_ratio"] <= 1 \
+            or not attn_errs["worst_row_ratio"] <= 1:
+        raise AssertionError(f"{cfg.name}: an attention call of the checked "
+                             f"run disagrees with the plain version: "
+                             f"{attn_errs}")
+    if not same:
+        raise AssertionError(f"{cfg.name}: argmax differs from the plain-"
+                             f"scan run: {ids.tolist()} vs "
+                             f"{ids_plain.tolist()}")
+    del logits, plain, checked
+    return model, launches
+
+
+def gc_collect() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def build_allocation(n_stages: int, instances: int, batch: int):
@@ -887,29 +1211,61 @@ def build_allocation(n_stages: int, instances: int, batch: int):
     return Allocation(stages=stages, placement=Placement(per_stage=per_stage))
 
 
-def device_profile(fn, host_ops: bool = False):
+def device_profile(fn, host_ops: bool = False, expect=None):
     """Run ``fn`` once under torch.profiler: the device's busy ms and the
     device kernels (and copies) as [name, launches, ms], longest first
-    (with ``host_ops``, also the host's top ops as [name, calls, self ms]).
+    (with ``host_ops``, also the host's top ops as [name, calls, self ms],
+    whose launch calls include the lead-in's).
     Only the device's own events are summed: a host op's row repeats the
-    device time of the kernels it launched."""
+    device time of the kernels it launched.
+
+    ``fn``'s work follows PROFILE_LEAD_IN spin kernels on the stream; the
+    profile is kept when some of them were recorded (the records lost are
+    the session's first) and ``fn``'s count of each kernel in ``expect``
+    (a name, matched as a substring, to its launches) is whole.  Else it
+    is printed as a ``profile_retake`` line and taken again, up to
+    PROFILE_TRIES times, and then fails the run."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        lead_in, out = _profile_once(fn, host_ops)
+        recorded = {n: sum(cnt for key, cnt, _ in out[1] if n in key)
+                    for n in expect or {}}
+        LEAD_IN_LOST.append(PROFILE_LEAD_IN - lead_in)
+        if lead_in and recorded == dict(expect or {}):
+            return out
+        emit({"phase": "profile_retake", "attempt": attempt,
+              "lead_in_recorded": lead_in, "expected": expect,
+              "recorded": recorded})
+    raise AssertionError(f"the profiler recorded {lead_in} lead-in and "
+                         f"{recorded} launches of {expect} in "
+                         f"{PROFILE_TRIES} tries")
+
+
+def _profile_once(fn, host_ops: bool):
+    """One profile of ``fn`` after the lead-in: the lead-in kernels
+    recorded, then ``device_profile``'s result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_IN):
+            torch.cuda._sleep(1)
         fn()
         torch.cuda.synchronize()
-    rows = prof.key_averages()
+    rows = [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CUDA or not e.is_user_annotation]
+    lead_in = sum(e.count for e in rows if e.device_type == DeviceType.CUDA
+                  and LEAD_IN_KERNEL in e.key)
     dev = sorted((e for e in rows if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation),
+                  and LEAD_IN_KERNEL not in e.key),
                  key=lambda e: e.self_device_time_total, reverse=True)
     kernels = [[e.key, e.count, e.self_device_time_total / 1e3] for e in dev]
     device_ms = sum(ms for _, _, ms in kernels)
     if not host_ops:
-        return device_ms, kernels
+        return lead_in, (device_ms, kernels)
     top = sorted(rows, key=lambda e: e.self_cpu_time_total, reverse=True)
-    return device_ms, kernels, [[e.key, e.count, e.self_cpu_time_total / 1e3]
-                                for e in top[:6]]
+    return lead_in, (device_ms, kernels,
+                     [[e.key, e.count, e.self_cpu_time_total / 1e3]
+                      for e in top[:6]])
 
 
 def stage_breakdown(stage, batch: int) -> dict:
@@ -1011,7 +1367,8 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mlstm_scan as ms
-    from repro_torch.models import Transformer
+    from repro_torch.kernels import ssm_scan as sm
+    from repro_torch.models import Transformer, param_bytes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1051,13 +1408,42 @@ def main() -> int:
     launches_decode = decode_full_width(dec, ops, Transformer, get_config)
     launches_decode_prefills = {"flash_attention_bhsd": fa.LAUNCHES,
                                 "mlstm_chunk_step": ms.LAUNCHES}
-    decode_consistency(Transformer, get_config)
+    decode_consistency(Transformer, [(get_config(arch), b, s, n, {})
+                                     for arch, b, s, n in CONSISTENCY_RUNS])
+
+    # the selective scan, then jamba-v0.1-52b: its prefill is the scan
+    # kernel's path (counts from 0 just before the timed prefill); its
+    # decode adds to the decode kernel's
+    worst_ssm = check_ssm(sm)
+    timing_ssm = time_ssm(sm, part, peaks)
+    model, launches_jamba = prefill_jamba(sm, fa, ops, Transformer,
+                                          get_config, param_bytes)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    launches_decode[JAMBA] = decode_model(dec, ops, model, 2048, 32, gen,
+                                          cut=JAMBA_CUT)
+    del model
+    gc_collect()
+    # fp32, one superblock (53 GB).  Capacity factor E / k = 8 makes every
+    # expert's capacity the whole batch, so the prefill drops no pair: at
+    # the published 1.25 a prefill of T tokens drops the pairs past its
+    # experts' capacity, which the dropless decode (as in the reference)
+    # keeps, and the two paths would compute different functions
+    jamba_sb = jamba_config(get_config, 8)
+    moe = dataclasses.replace(jamba_sb.moe, capacity_factor=float(
+        jamba_sb.moe.num_experts // jamba_sb.moe.top_k))
+    decode_consistency(Transformer, [(
+        dataclasses.replace(jamba_sb, moe=moe), 1, 512, 16,
+        {"cut": "num_layers 32 -> 8 (1 of 4 superblocks): 53 GB in fp32",
+         "capacity_factor": moe.capacity_factor})], seed=16)
 
     main_row = timing[0]
     attn_serve = first["flash_attention_bhsd"] \
         + second["flash_attention_bhsd"]
     mlstm_row = timing_mlstm[0]           # the serving shape, L = 16
     decode_row = timing_decode[0]         # qwen3-0.6b's, B 4, Sc 2080
+    ssm_row = timing_ssm[0]               # jamba's chunk at B 4
+    emit({"phase": "profiler", "profiles": len(LEAD_IN_LOST),
+          "lead_in": PROFILE_LEAD_IN, "lead_in_lost": LEAD_IN_LOST})
     emit({"kernels": [{
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1066,6 +1452,7 @@ def main() -> int:
         "launches_serve_chain": first["flash_attention_bhsd"],
         "launches_serve_text_to_img": second["flash_attention_bhsd"],
         "launches_prefill": launches_prefill,
+        "launches_jamba_prefill": launches_jamba["flash_attention_bhsd"],
         "launches_decode_path_prefills":
             launches_decode_prefills["flash_attention_bhsd"],
         "max_abs_err": worst,
@@ -1099,7 +1486,20 @@ def main() -> int:
         "bound_ms": decode_row["bound_ms"],
         "bound_by": decode_row["bound_by"],
         "library_ms": decode_row["library_ms"],
-        "per_shape": timing_decode}]})
+        "per_shape": timing_decode}, {
+        "name": "ssm_chunk_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:39",
+        "launches": launches_jamba["ssm_chunk_scan"],
+        "launches_note": "timed jamba-v0.1-52b prefill, B 4, S 2048, "
+                         "16 layers",
+        "launches_serve": 0, "max_abs_err": worst_ssm,
+        "ms": ssm_row["ms"], "device_ms": ssm_row["device_ms"],
+        "plain_ms": ssm_row["plain_ms"], "bound_ms": ssm_row["bound_ms"],
+        "bound_by": ssm_row["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes this linear "
+                        "recurrence",
+        "per_shape": timing_ssm}]})
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

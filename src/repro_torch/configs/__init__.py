@@ -1,6 +1,7 @@
 from repro_torch.configs.base import (
     ARCH_IDS,
     ATTN,
+    MAMBA,
     MLSTM,
     SLSTM,
     ModelConfig,
@@ -9,5 +10,5 @@ from repro_torch.configs.base import (
     register,
 )
 
-__all__ = ["ARCH_IDS", "ATTN", "MLSTM", "ModelConfig", "MoEConfig", "SLSTM",
-           "get_config", "register"]
+__all__ = ["ARCH_IDS", "ATTN", "MAMBA", "MLSTM", "ModelConfig", "MoEConfig",
+           "SLSTM", "get_config", "register"]

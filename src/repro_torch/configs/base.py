@@ -14,8 +14,8 @@ from dataclasses import dataclass, replace
 from typing import Callable, Optional, Sequence
 
 
-# Block kinds (the port's models implement ATTN with a dense MLP, and MLSTM
-# and SLSTM with none)
+# Block kinds (the port's models implement ATTN with a dense MLP, MAMBA with
+# a dense or MoE MLP, and MLSTM and SLSTM with none)
 ATTN = "attn"          # (causal or bidirectional) self-attention block
 CROSS = "cross"        # decoder block with self + cross attention (enc-dec)
 MAMBA = "mamba"        # Mamba selective-SSM block
@@ -125,6 +125,7 @@ _REDUCERS: dict[str, Callable[[ModelConfig], ModelConfig]] = {}
 
 # the architectures whose layers the port implements
 _MODULES = {
+    "jamba-v0.1-52b": "jamba_v0p1_52b",
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "qwen3-0.6b": "qwen3_0p6b",
     "starcoder2-3b": "starcoder2_3b",

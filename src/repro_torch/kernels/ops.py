@@ -1,15 +1,16 @@
 """Public kernel ops in the models' layouts.
 
 ``flash_attention`` (BSHD), ``decode_attention`` (one query token over the
-(B, Sc, KVH, hd) cache) and ``mlstm_chunk`` ((B, H, L, hd)) dispatch on the
-tensor's device: a CUDA tensor goes to the hand-written kernel
-(``flash_attention_bhsd``, ``decode_attention_packed``,
-``mlstm_chunk_step``), a CPU tensor to its plain version
-(``attention_plain``, ``decode_attention_plain``, ``mlstm_chunk_plain``).
-There is no other switch, and a CUDA tensor never reaches a plain version
-through these functions.  ``flash_attention_plain``,
-``decode_attention_plain`` and ``mlstm_chunk_plain`` run the plain version
-on any device, for holding the kernel against it.
+(B, Sc, KVH, hd) cache), ``mlstm_chunk`` ((B, H, L, hd)) and ``ssm_scan``
+((B, L, D, ST)) dispatch on the tensor's device: a CUDA tensor goes to the
+hand-written kernel (``flash_attention_bhsd``, ``decode_attention_packed``,
+``mlstm_chunk_step``, ``ssm_chunk_scan``), a CPU tensor to its plain
+version (``attention_plain``, ``decode_attention_plain``,
+``mlstm_chunk_plain``, ``ssm_chunk_scan_plain``).  There is no other
+switch, and a CUDA tensor never reaches a plain version through these
+functions.  ``flash_attention_plain``, ``decode_attention_plain``,
+``mlstm_chunk_plain`` and ``ssm_scan_plain`` run the plain version on any
+device, for holding the kernel against it.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import mlstm_scan
+from repro_torch.kernels import ssm_scan as scan_mod
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention_bhsd)
 
@@ -113,3 +115,18 @@ def mlstm_chunk(q, k, v, i_raw, f_raw, c, n, m):
 def mlstm_chunk_plain(q, k, v, i_raw, f_raw, c, n, m):
     """``mlstm_chunk`` through the plain version on any device."""
     return _bh(mlstm_scan.mlstm_chunk_plain, q, k, v, i_raw, f_raw, c, n, m)
+
+
+def ssm_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
+    """The within-chunk selective scan: da, dbx (B, L, D, ST) fp32 -> all
+    h_t (B, L, D, ST) fp32, h_t = da_t * h_{t-1} + dbx_t from h_0 = 0."""
+    if da.device.type == "cuda":
+        return scan_mod.ssm_chunk_scan(da, dbx)
+    if da.device.type == "cpu":
+        return scan_mod.ssm_chunk_scan_plain(da, dbx)
+    raise ValueError(f"no ssm scan path for device {da.device}")
+
+
+def ssm_scan_plain(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
+    """``ssm_scan`` through the plain version on any device."""
+    return scan_mod.ssm_chunk_scan_plain(da, dbx)

@@ -1,4 +1,5 @@
-"""Shared layers: norms, RoPE, SwiGLU MLP, seeded init, device resolution."""
+"""Shared layers: norms, RoPE, causal conv, SwiGLU MLP, seeded init, device
+resolution."""
 from __future__ import annotations
 
 from typing import Sequence, Union
@@ -80,6 +81,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Causal depthwise conv (the mLSTM and Mamba blocks)
+# --------------------------------------------------------------------------
+
+def causal_conv(x: torch.Tensor, tail: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor):
+    """x: (B, S, inner); tail: (B, ck-1, inner) history; w: (ck, inner).
+    Returns the depthwise causal conv output (B, S, inner) and the new
+    tail."""
+    ck = w.shape[0]
+    s = x.shape[1]
+    xp = torch.cat([tail.to(x.dtype), x], dim=1)
+    out = sum(xp[:, i:i + s] * w[i] for i in range(ck))
+    new_tail = xp[:, -(ck - 1):] if ck > 1 else tail
+    return out + b, new_tail
 
 
 # --------------------------------------------------------------------------

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import causal_conv, rms_norm
 
 MLSTM_CHUNK = 256
 NEG_INF = -1e30
@@ -72,16 +72,6 @@ def make_mlstm_state(batch: int, cfg: ModelConfig, dtype=torch.bfloat16,
                          device=device))
 
 
-def _conv(x, tail, w, b):
-    """Causal depthwise conv over (B, S, inner) after the carried tail;
-    returns (out, new tail)."""
-    ck = w.shape[0]
-    s = x.shape[1]
-    xp = torch.cat([tail.to(x.dtype), x], dim=1)
-    out = sum(xp[:, i:i + s] * w[i] for i in range(ck))
-    return out + b, xp[:, -(ck - 1):]
-
-
 def _mlstm_qkv_gates(x_m, xc, p, cfg: ModelConfig):
     """x_m, xc: (B, S, inner) -> q, k, v (B, H, S, hd); i_raw, f_raw
     (B, H, S) in fp32.  k is scaled by hd^-0.5 here, as in the reference."""
@@ -106,7 +96,7 @@ def mlstm_mix(x: torch.Tensor, p, cfg: ModelConfig, state: MLSTMState,
     b, s, _ = x.shape
     inner, h, hd = _mlstm_dims(cfg)
     x_m, z = (x @ p["in_proj"]).chunk(2, dim=-1)
-    xc, new_tail = _conv(x_m, state.conv, p["conv_w"], p["conv_b"])
+    xc, new_tail = causal_conv(x_m, state.conv, p["conv_w"], p["conv_b"])
     xc = F.silu(xc.float()).to(x.dtype)
     q, k, v, i_raw, f_raw = _mlstm_qkv_gates(x_m, xc, p, cfg)
 
@@ -145,7 +135,7 @@ def mlstm_decode(x: torch.Tensor, p, cfg: ModelConfig, state: MLSTMState
     b = x.shape[0]
     inner = _mlstm_dims(cfg)[0]
     x_m, z = (x @ p["in_proj"]).chunk(2, dim=-1)
-    xc, new_tail = _conv(x_m, state.conv, p["conv_w"], p["conv_b"])
+    xc, new_tail = causal_conv(x_m, state.conv, p["conv_w"], p["conv_b"])
     xc = F.silu(xc.float()).to(x.dtype)
     q, k, v, i_raw, f_raw = _mlstm_qkv_gates(x_m, xc, p, cfg)
     q32, k32, v32 = (t[:, :, 0].float() for t in (q, k, v))   # (B, H, hd)

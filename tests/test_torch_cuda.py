@@ -13,6 +13,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import mlstm_scan, ops
+from repro_torch.kernels import ssm_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -259,3 +260,78 @@ def test_cuda_serve_decode_runs_the_kernel_once_per_layer_and_step(card,
     assert launched == cfg.num_layers * 3
     assert cache.pos == s + 3
     assert torch.isfinite(logits).all()
+
+
+# chip_smoke.py's check_ssm cases: B 1/4 x L 1/7/256 x D 8/100/8192 x ST
+# 4/16, then the scalar path (D*ST not a multiple of 4; buffers one float
+# off the vector path's 16-byte alignment)
+@pytest.mark.parametrize("b,l,d,st,offset", [
+    (b, l, d, st, 0) for b in (1, 4) for l in (1, 7, 256)
+    for d in (8, 100, 8192) for st in (4, 16)]
+    + [(2, 33, 7, 3, 0), (2, 9, 100, 16, 1), (3, 256, 8192, 16, 1)])
+def test_cuda_ssm_kernel_matches_plain(card, b, l, d, st, offset):
+    """The scan kernel against its plain version: atol 1e-4 / rtol 1e-3
+    (the repo's scan tolerances); both round each step's product and sum
+    to fp32 separately, so they agree bit for bit."""
+    n = b * l * d * st
+
+    def buf(t):
+        out = torch.empty(n + offset, device="cuda")[offset:]
+        return out.view(b, l, d, st).copy_(t)
+    da = buf(torch.sigmoid(torch.randn(b, l, d, st, generator=card,
+                                       device="cuda")))
+    dbx = buf(torch.randn(b, l, d, st, generator=card, device="cuda") * 0.1)
+    before = ssm_scan.LAUNCHES
+    out = ops.ssm_scan(da, dbx)
+    torch.cuda.synchronize()
+    assert ssm_scan.LAUNCHES == before + 1
+    ref = ops.ssm_scan_plain(da, dbx)
+    assert out.dtype == torch.float32 and out.shape == (b, l, d, st)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-4, rtol=1e-3)
+    assert torch.equal(out, ref)
+
+
+def test_cuda_ssm_kernel_refuses_what_it_cannot_take(card):
+    da = torch.rand(2, 5, 8, 4, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        ssm_scan.ssm_chunk_scan(da.bfloat16(), da.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan.ssm_chunk_scan(da.transpose(1, 2), da.transpose(1, 2))
+    with pytest.raises(ValueError, match="one device"):
+        ssm_scan.ssm_chunk_scan(da, da.cpu())
+
+
+def test_cuda_jamba_prefill_runs_the_kernel_per_mamba_layer_and_chunk(card):
+    """Reduced jamba-v0.1-52b (7 Mamba layers) in fp32, S = 40 in the
+    model's chunks of 256: one chunk, so 7 launches, and the argmax of the
+    plain op's run; then chunks of 16 through ``mamba_mix`` directly: 3
+    chunks, the last one padded; then 3 decode steps."""
+    from repro_torch.models import (Transformer, make_mamba_state,
+                                    mamba_mix)
+    cfg = get_config("jamba-v0.1-52b", reduced=True)
+    model = Transformer(cfg, dtype=torch.float32, seed=0)
+    assert model.device.type == "cuda"
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=card,
+                           device="cuda", dtype=torch.int32)
+    n_mamba = cfg.block_pattern.count("mamba")
+    with torch.inference_mode():
+        before = ssm_scan.LAUNCHES
+        logits, cache = model.serve_prefill(tokens, cache_len=43)
+        launched = ssm_scan.LAUNCHES - before
+        plain, _ = model.serve_prefill(tokens, ssm=ops.ssm_scan_plain)
+        for _ in range(3):
+            logits_d, cache = model.serve_decode(logits.argmax(-1), cache)
+        x = torch.randn(2, 40, cfg.d_model, generator=card, device="cuda")
+        state = make_mamba_state(2, cfg, torch.float32, "cuda")
+        before = ssm_scan.LAUNCHES
+        out, _ = mamba_mix(x, model.layers[0], cfg, state, chunk=16)
+        chunked = ssm_scan.LAUNCHES - before
+        out_p, _ = mamba_mix(x, model.layers[0], cfg, state, chunk=16,
+                             ssm=ops.ssm_scan_plain)
+    assert launched == n_mamba
+    assert chunked == 3
+    assert torch.isfinite(logits).all() and torch.isfinite(logits_d).all()
+    assert torch.equal(logits.argmax(-1), plain.argmax(-1))
+    np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(),
+                               atol=1e-4, rtol=1e-3)

@@ -61,6 +61,12 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
         "                       cache_len=10)\n"
         "lg, c = m.serve_decode(torch.zeros(1, dtype=torch.int32), c)\n"
         "assert lg.shape == (1, 512) and c.pos == 9\n"
+        "m = Transformer(get_config('jamba-v0.1-52b', reduced=True),\n"
+        "                device='cpu', dtype=torch.float32)\n"
+        "_, c = m.serve_prefill(torch.zeros(1, 8, dtype=torch.int32),\n"
+        "                       cache_len=10)\n"
+        "lg, c = m.serve_decode(torch.zeros(1, dtype=torch.int32), c)\n"
+        "assert lg.shape == (1, 512) and c.pos == 9\n"
         "assert sys.modules['jax'] is None and sys.modules['repro'] is None\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -84,4 +90,4 @@ def test_device_none_raises_without_cuda(monkeypatch):
 def test_unported_architecture_raises():
     from repro_torch.configs import get_config
     with pytest.raises(KeyError, match="not ported"):
-        get_config("jamba-v0.1-52b")
+        get_config("chameleon-34b")
