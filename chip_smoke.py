@@ -6,14 +6,19 @@ Phases, each printing one line per case:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. the build of the CUDA kernels (nvcc, sm_90a) and its seconds;
   3. every kernel against its plain PyTorch version on the card, at the
-     serving path's shapes and at ragged/odd ones (max error per case; for
-     the mLSTM chunk kernel per output h, c, n, m, with zero and carried
-     state, a three-chunk carried sequence and padded-gate tails);
+     serving path's shapes and at ragged/odd ones (max error per case;
+     attention in bf16, the tensor-core kernel, and in fp32, the exact
+     kernel, each launching once per call, and on strided (B, S, H, hd)
+     views through ``ops.flash_attention``; for the mLSTM chunk kernel
+     per output h, c, n, m, with zero and carried state, a three-chunk
+     carried sequence and padded-gate tails);
   4. kernel, plain and library times at the paths' shapes, beside the
-     bound of the card: attention at the prefill (S=2048) and serving
-     (S=16) shapes against ``scaled_dot_product_attention``; the mLSTM
-     chunk at (B*H 16, L 16 and 256, hd 1024), which no single PyTorch
-     call computes;
+     bound of the card: attention at the prefill shapes (S 2048 for
+     qwen3-0.6b, qwen1.5-0.5b and jamba-v0.1-52b, S 4096 with the window
+     for starcoder2-3b) and the serving shape (S 16), CUDA events and the
+     profiler's device time of the kernel and of
+     ``scaled_dot_product_attention``; the mLSTM chunk at (B*H 16, L 16
+     and 256, hd 1024), which no single PyTorch call computes;
   5. full-width prefill of qwen3-0.6b and qwen1.5-0.5b (B=4, S=2048) and of
      xlstm-1.3b (B=4, S=1024: four mLSTM chunks per layer): finite logits,
      one kernel launch per attention layer and per mLSTM layer and chunk,
@@ -31,8 +36,9 @@ Phases, each printing one line per case:
      Sc, bf16 and fp32, the cache in the model's strided layout), its
      times at the decode path's shapes (``time_decode``: qwen3-0.6b and
      qwen1.5-0.5b at B 4, Sc 2080, starcoder2-3b at B 4, Sc 4096, against
-     ``scaled_dot_product_attention``), then ``Transformer.serve_decode``
-     at full width and depth in bf16 after each model's prefill
+     ``scaled_dot_product_attention``, events and device time), then
+     ``Transformer.serve_decode`` at full width and depth in bf16 after
+     each model's prefill
      (``decode``: qwen3-0.6b and qwen1.5-0.5b, B 4, prompt 2048, 32 steps;
      starcoder2-3b, B 4, prompt 4096 = its window, 64 steps through the
      full ring; xlstm-1.3b, B 4, prompt 256, 16 steps), every kernel call
@@ -95,7 +101,9 @@ LOGIT_REL_TOL = 3e-2
 # nudge moved the logits by 9e-4 on a CPU run of the stack at d 256); a
 # broken mLSTM layer moves them by O(1)
 XLSTM_LOGIT_REL_TOL = 0.1
-ATTN_KERNEL = "flash_attention_kernel"     # the CUDA kernel's symbol
+# prefix of both attention kernels' symbols: flash_attention_bf16_kernel
+# (tensor cores) and flash_attention_fp32_kernel (exact, CUDA cores)
+ATTN_KERNEL = "flash_attention_"
 MLSTM_KERNELS = ("mlstm_gates_kernel", "mlstm_state_kernel")  # its passes
 # mLSTM chunk, kernel vs plain (both fp32 from the same inputs): the repo's
 # tolerances for the Pallas kernel against its oracle (tests/test_kernels.py)
@@ -203,6 +211,30 @@ CHECK_CASES = [
     (3, 80, 80, 8, 4, 8, True, None, torch.bfloat16),
     (1, 65, 200, 2, 1, 128, True, None, torch.float32),
     (1, 130, 130, 2, 2, 64, False, None, torch.float32),
+    # their bf16 twins, on the tensor-core kernel, at hd 8 to 128: Sq = 1,
+    # Skv not a multiple of the 128-key tile, windows 1 / 7 / 64, a window
+    # without causal, rows with no key left
+    (2, 1, 1, 4, 2, 32, True, None, torch.bfloat16),
+    (2, 1, 77, 4, 2, 16, True, None, torch.bfloat16),
+    (2, 1, 300, 4, 2, 128, True, None, torch.bfloat16),
+    (3, 77, 77, 8, 2, 16, True, None, torch.bfloat16),
+    (2, 77, 130, 4, 1, 32, True, None, torch.bfloat16),
+    (2, 130, 77, 4, 4, 8, True, None, torch.bfloat16),
+    (2, 100, 100, 4, 2, 16, True, 1, torch.bfloat16),
+    (2, 100, 100, 4, 2, 16, True, 7, torch.bfloat16),
+    (2, 100, 100, 4, 2, 16, True, 64, torch.bfloat16),
+    (2, 300, 300, 4, 2, 128, True, 1, torch.bfloat16),
+    (2, 300, 300, 4, 2, 64, True, 7, torch.bfloat16),
+    (2, 300, 300, 4, 2, 8, True, 64, torch.bfloat16),
+    (2, 77, 90, 4, 2, 8, False, None, torch.bfloat16),
+    (2, 77, 77, 4, 2, 32, False, 7, torch.bfloat16),
+    (2, 300, 300, 4, 2, 128, False, 64, torch.bfloat16),
+    (2, 77, 16, 4, 2, 32, True, 7, torch.bfloat16),
+    (2, 300, 100, 4, 2, 128, True, 64, torch.bfloat16),
+    (1, 65, 200, 2, 1, 128, True, None, torch.bfloat16),
+    (1, 130, 130, 2, 2, 64, False, None, torch.bfloat16),
+    # starcoder2-3b's prefill on the decode path: 24/2/128, window 4096
+    (1, 4096, 4096, 24, 2, 128, True, 4096, torch.bfloat16),
 ]
 
 
@@ -215,28 +247,75 @@ def check_kernels(fa) -> float:
         v = rand(gen, (b * kvh, skv, hd), dtype)
         kw = dict(num_heads=h, num_kv_heads=kvh, causal=causal,
                   window=window)
+        before = fa.LAUNCHES
         out = fa.flash_attention_bhsd(q, k, v, **kw)
+        launched = fa.LAUNCHES - before
         ref = fa.attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
-        if out.shape != ref.shape or out.dtype != ref.dtype:
-            raise AssertionError(f"shape/dtype {out.shape} {out.dtype}")
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
-        tol = TOL[dtype]
-        row_max = ref.float().abs().amax(-1, keepdim=True)
-        ok_abs = bool((diff <= tol + tol * ref.float().abs()).all())
-        ok_row = bool((diff <= ROW_TOL[dtype] * row_max).all())
-        ok = ok_abs and ok_row
-        emit({"phase": "check", "b": b, "sq": sq, "skv": skv, "h": h,
-              "kvh": kvh, "hd": hd, "causal": causal, "window": window,
-              "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-              "mean_abs_err": diff.mean().item(),
-              "max_err_over_row_max": (diff / row_max).max().item(),
-              "tol": tol, "row_tol": ROW_TOL[dtype], "ok": ok})
-        if not ok or not math.isfinite(err):
-            raise AssertionError(f"kernel disagrees with plain: case "
-                                 f"{(b, sq, skv, h, kvh, hd, causal, window)}")
-        worst = max(worst, err)
+        case = {"b": b, "sq": sq, "skv": skv, "h": h, "kvh": kvh, "hd": hd,
+                "causal": causal, "window": window}
+        worst = max(worst, _held_to_plain("check", case, out, ref, launched))
+    return worst
+
+
+def _held_to_plain(phase: str, case: dict, out, ref, launched: int) -> float:
+    """Prints the kernel's error against the plain version under TOL and
+    ROW_TOL and raises if it is out of bounds or the call did not launch
+    the kernel exactly once; returns the max error."""
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"shape/dtype {out.shape} {out.dtype}")
+    dtype = out.dtype
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    tol = TOL[dtype]
+    row_max = ref.float().abs().amax(-1, keepdim=True)
+    ok_abs = bool((diff <= tol + tol * ref.float().abs()).all())
+    ok_row = bool((diff <= ROW_TOL[dtype] * row_max).all())
+    ok = ok_abs and ok_row and launched == 1
+    emit({"phase": phase, **case, "dtype": str(dtype).split(".")[-1],
+          "max_abs_err": err, "mean_abs_err": diff.mean().item(),
+          "max_err_over_row_max": (diff / row_max).max().item(),
+          "tol": tol, "row_tol": ROW_TOL[dtype], "launches": launched,
+          "ok": ok})
+    if not ok or not math.isfinite(err):
+        raise AssertionError(f"kernel disagrees with plain or launched "
+                             f"{launched} times: {phase} case {case}")
+    return err
+
+
+# (B, S, H, KVH, hd, causal, window, dtype): q, k, v as the (B, S, H, hd)
+# slices of one fused (B, S, H + 2 KVH, hd) projection, so none is
+# contiguous, through ops.flash_attention as the models call it
+BSHD_CASES = [
+    (2, 300, 16, 8, 128, True, None, torch.bfloat16),
+    (2, 300, 16, 16, 64, True, None, torch.bfloat16),
+    (2, 130, 4, 2, 8, True, 7, torch.bfloat16),
+    (2, 130, 4, 2, 32, False, None, torch.float32),
+]
+
+
+def check_bshd(fa, ops) -> float:
+    """The model's layout read in place: the kernel on strided (B, S, H,
+    hd) views against the plain version on the same views; the output is
+    (B, S, H, hd) and contiguous, so the model's reshape is a view."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    for b, s, h, kvh, hd, causal, window, dtype in BSHD_CASES:
+        qkv = rand(gen, (b, s, h + 2 * kvh, hd), dtype)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kvh], qkv[:, :, h + kvh:]
+        before = fa.LAUNCHES
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        launched = fa.LAUNCHES - before
+        ref = ops.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        if not out.is_contiguous():
+            raise AssertionError(f"output strides {out.stride()}")
+        case = {"b": b, "s": s, "h": h, "kvh": kvh, "hd": hd,
+                "causal": causal, "window": window,
+                "q_strides": list(q.stride())}
+        worst = max(worst, _held_to_plain("check_bshd", case, out, ref,
+                                          launched))
     return worst
 
 
@@ -244,43 +323,90 @@ def check_kernels(fa) -> float:
 # phase 4: timing at the path's prefill shapes
 # --------------------------------------------------------------------------
 
-def time_kernels(fa, peaks) -> list:
-    """Kernel, plain and library times at the path's two geometries, at
-    the prefill shape (S = 2048) and the serving shape (S = 16)."""
+# (S, H, KVH, hd, window, the model whose prefill has this shape), B 4
+ATTN_TIME_SHAPES = [
+    (2048, 16, 8, 128, None, "qwen3-0.6b"),
+    (2048, 16, 16, 64, None, "qwen1.5-0.5b"),
+    (2048, 32, 8, 128, None, JAMBA),
+    (4096, 24, 2, 128, 4096, "starcoder2-3b (decode path's prefill)"),
+    (16, 16, 8, 128, None, "qwen3-0.6b (serving)"),
+    (16, 16, 16, 64, None, "qwen1.5-0.5b (serving)"),
+]
+
+
+def library_device_ms(fn, calls: int) -> tuple:
+    """Device ms per call of a library function (all the kernels it
+    launches) over ``calls`` profiled calls, and its kernels' names."""
+    def run():
+        for _ in range(calls):
+            fn()
+    device_ms, kernels = device_profile(run)
+    return device_ms / calls, [name for name, _, _ in kernels[:3]]
+
+
+def time_kernels(fa, ops, peaks) -> list:
+    """Kernel, plain and library times at the prefill paths' shapes (and
+    the serving shape, S = 16): CUDA-event ms of the kernel on the TPU
+    op's (B*H, S, hd) layout and on the model's (B, S, H, hd), the
+    kernel's device ms from the profiler, and the same two times of one
+    ``scaled_dot_product_attention`` call on the same values."""
     import torch.nn.functional as F
     flops_rate, mem_rate = peaks
     gen = torch.Generator(device="cuda").manual_seed(1)
     b = 4
     rows = []
-    for s, (h, kvh, hd) in [(s, g) for s in (2048, 16)
-                            for g in ((16, 8, 128), (16, 16, 64))]:
+    for s, h, kvh, hd, window, model in ATTN_TIME_SHAPES:
         iters = 20 if s > 16 else 200        # S = 16 launches take ~10 us
         dt = torch.bfloat16
         q = rand(gen, (b * h, s, hd), dt)
         k = rand(gen, (b * kvh, s, hd), dt)
         v = rand(gen, (b * kvh, s, hd), dt)
-        kw = dict(num_heads=h, num_kv_heads=kvh, causal=True, window=None)
-        ms = cuda_ms(lambda: fa.flash_attention_bhsd(q, k, v, **kw), iters)
+        kw = dict(num_heads=h, num_kv_heads=kvh, causal=True, window=window)
+
+        def kernel():
+            return fa.flash_attention_bhsd(q, k, v, **kw)
+        ms = cuda_ms(kernel, iters)
+        device_ms = kernel_device_ms(kernel, (ATTN_KERNEL,),
+                                     10 if s > 16 else 50)[ATTN_KERNEL]
+        # the model's layout: (B, S, H, hd) tensors of the same values
+        q4, k4, v4 = (t.view(b, -1, s, hd).transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+        ms_bshd = cuda_ms(lambda: ops.flash_attention(
+            q4, k4, v4, causal=True, window=window), iters)
+        del q4, k4, v4
         plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v, **kw),
-                           iters // 4)
-        q4 = q.view(b, h, s, hd)
-        k4 = k.view(b, kvh, s, hd)
-        v4 = v.view(b, kvh, s, hd)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=kvh != h), iters)
+                           max(iters // 4, 3))
+        torch.cuda.empty_cache()
+        # the library on (B, H, S, hd) views; every window here spans the
+        # whole sequence, so causal is the same function
+        if window is not None and window < s:
+            raise AssertionError("SDPA's is_causal is not this window")
+        ql, kl, vl = (t.view(b, -1, s, hd) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=True, enable_gqa=kvh != h)
+        lib_ms = cuda_ms(library, iters)
+        lib_device_ms, lib_kernels = library_device_ms(
+            library, 10 if s > 16 else 50)
         # work these inputs need: every unmasked (q, k) pair, QK^T and PV
-        pairs = s * (s + 1) // 2
+        pairs = sum(min(i + 1, window or s) for i in range(s))
         flops = 4 * hd * pairs * b * h
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         t_ops, t_bytes = flops / flops_rate, nbytes / mem_rate
-        row = {"h": h, "kvh": kvh, "hd": hd, "b": b, "s": s,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "flops": flops, "bytes": nbytes,
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
+        row = {"model": model, "h": h, "kvh": kvh, "hd": hd, "b": b, "s": s,
+               "window": window, "ms": ms, "device_ms": device_ms,
+               "ms_bshd": ms_bshd, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+               "library_kernels": lib_kernels, "flops": flops,
+               "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         row["bound_share"] = row["bound_ms"] / ms
+        row["bound_share_device"] = row["bound_ms"] / device_ms
         emit({"phase": "time", **row})
         rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -730,6 +856,7 @@ def time_decode(dec, ops, peaks) -> list:
             return F.scaled_dot_product_attention(qt, k, v, attn_mask=mask,
                                                   enable_gqa=kvh != h)
         lib_ms = cuda_ms(library, 200)
+        lib_device_ms, lib_kernels = library_device_ms(library, 50)
         del lib_kv
         # K and V up to valid read once, q read and out written once
         nbytes = 2 * b * valid * kvh * hd * 2 + 2 * q.numel() * 2
@@ -741,8 +868,9 @@ def time_decode(dec, ops, peaks) -> list:
                "device_ms_by_pass": by_pass,
                "device_ms_by_blocks_per_sm": dict(sorted(by_target.items())),
                "plain_ms": plain_ms,
-               "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+               "library_kernels": lib_kernels, "flops": flops,
+               "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         row["bound_share"] = row["bound_ms"] / ms
         row["bound_share_device"] = row["bound_ms"] / dev_ms
@@ -1389,10 +1517,10 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s, "library": lib.name,
           "ptxas": ptxas})
 
-    worst = check_kernels(fa)
+    worst = max(check_kernels(fa), check_bshd(fa, ops))
     worst_mlstm = check_mlstm(ms)
     worst_decode = check_decode(dec)
-    timing = time_kernels(fa, peaks)
+    timing = time_kernels(fa, ops, peaks)
     timing_mlstm = time_mlstm(ms, peaks)
     timing_decode = time_decode(dec, ops, peaks)
 
@@ -1456,9 +1584,11 @@ def main() -> int:
         "launches_decode_path_prefills":
             launches_decode_prefills["flash_attention_bhsd"],
         "max_abs_err": worst,
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "ms": main_row["ms"], "device_ms": main_row["device_ms"],
+        "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "library_device_ms": main_row["library_device_ms"],
         "per_shape": timing}, {
         "name": "mlstm_chunk_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
@@ -1486,6 +1616,7 @@ def main() -> int:
         "bound_ms": decode_row["bound_ms"],
         "bound_by": decode_row["bound_by"],
         "library_ms": decode_row["library_ms"],
+        "library_device_ms": decode_row["library_device_ms"],
         "per_shape": timing_decode}, {
         "name": "ssm_chunk_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",

@@ -1,9 +1,13 @@
 // Prefill attention with GQA, causal and sliding-window masks, for Hopper.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
-// flash_attention_bhsd (body _kernel).  Same contract:
-//   q (B*H, Sq, hd); k, v (B*KVH, Skv, hd); out (B*H, Sq, hd) in q's dtype.
-//   GQA kv row of query row bh: (bh / H) * KVH + (bh % H) / (H / KVH).
+// flash_attention_bhsd (body _kernel).  Same function:
+//   q (B, H, Sq, hd); k, v (B, KVH, Skv, hd); out (B, H, Sq, hd) in q's
+//   dtype, each addressed through its (b, head, seq) strides in elements,
+//   hd contiguous.  The TPU op's contiguous (B*H, S, hd) layout is one
+//   set of strides; the model's (B, S, H, hd) tensors are read and
+//   written in place with theirs (no transposing copy).  Query head h
+//   reads KV head h / (H / KVH).
 //   Masks: kv padding; causal kpos <= qpos with no offset (also when
 //   Sq != Skv); window kpos > qpos - window (also without causal).
 //   A masked score is -1e30 (finite), exactly as the reference oracle
@@ -18,46 +22,631 @@
 // FLOP/byte ridge, so the bound is the tensor-core rate (~69 us at
 // 989 TFLOP/s).  At the serving shape (S=16) it is launch latency.
 //
-// What this first design does about it: nothing clever yet.  It is a
-// simple, exact kernel on the CUDA cores in fp32:
-//   * grid (ceil(Sq/64), B*H); each block owns one 64-row q tile and
-//     loops over the 64-row kv tiles itself (this loop replaces the TPU's
-//     sequential third grid axis);
-//   * the loop runs only over the kv tiles that the causal/window limits
-//     of the block's rows reach (the TPU kernel's pl.when skips);
-//   * Q (pre-scaled), K, V and the score tile live in dynamic shared
-//     memory as fp32 (116 KB at hd=128), m/l/corr per row in shared
-//     memory, the output accumulator in registers;
-//   * 256 threads: S = Q K^T as 4x4 register micro-tiles, one warp per
-//     8 rows for the softmax, then acc = acc*corr + P V.
-// Tensor cores (mma.sync / wgmma), TMA and warp specialisation are the
-// work of a later change; PERF.md records this kernel's time against its
-// bound.
+// bf16 (every head dim): flash_attention_bf16_kernel, on the tensor cores.
+//   * A block owns 128 query rows: two consumer warpgroups of 64 rows
+//     each and one producer warpgroup.  It walks the 128-key tiles that
+//     its rows reach (the causal and window limits skip the rest, as the
+//     TPU kernel's pl.when does); only the diagonal and edge tiles are
+//     masked element by element.  Blocks are issued heaviest (last query
+//     rows) first.
+//   * S = Q K^T and O += P V run on bf16 wgmma with fp32 accumulators in
+//     registers (m64n128k16 for S, m64n<hd>k16 for PV).  Q, K and V sit
+//     in shared memory in the 128/64/32-byte swizzled layouts that TMA
+//     writes and wgmma reads through its matrix descriptors (K-major Q and
+//     K; V as the MN-major B operand, so it is never transposed).  hd 8 is
+//     zero-padded to 16 in the tiles: the padding adds 0 to QK^T and is
+//     never stored.
+//   * The online softmax runs on the S accumulator fragments in registers
+//     (the scale folded into exp2, on the SFU); P is rounded to bf16 in
+//     registers and fed to the PV wgmma as its A operand, so it never
+//     passes through shared memory.  That rounding is the one this kernel
+//     adds to the TPU kernel's numerics (which keep P in fp32); l sums the
+//     unrounded p.
+//   * Each tile issues S(t) and then PV(t - 1) and waits for S(t) only,
+//     so the softmax of tile t runs while the tensor cores finish
+//     PV(t - 1); and the two consumer warpgroups take turns to issue
+//     (ping-pong, two named barriers), so one runs its softmax while the
+//     tensor cores work for the other.
+//   * K/V live in a ring of three stages in shared memory (224 KB at hd
+//     128: one block per SM).  One producer thread fills it with TMA
+//     copies (cp.async.bulk.tensor through a tensor map per operand, made
+//     on the host from the caller's strides), each stage with a "full"
+//     mbarrier (the copies' bytes landed) and an "empty" one (every
+//     consumer thread is past its PV).  The producer warpgroup gives its
+//     registers to the consumers (setmaxnreg 24 / 240).
+//   What it leaves (PERF.md): the softmax's SFU and issue time per tile,
+//   which the consumers still pay in series with their own products.
+// fp32: flash_attention_fp32_kernel, exact on the CUDA cores.  TF32 would
+//   not hold the fp32 check's 1e-4 of a row's largest value, and the fp32
+//   runs (the decode-consistency runs, the fp32 checks) need that: a
+//   64-row q tile and 64-key tiles in shared memory as fp32, S by 4x4
+//   register micro-tiles, a warp per 8 rows for the softmax, then
+//   acc = acc * corr + P V.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr float MASKED = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Params {
+  int sq, skv, h, kvh, causal, window;
+  float scale;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss;
+  long long v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
+};
+
+// First and last key a query row may see, before kv padding.
+__device__ __forceinline__ int key_lo(int qpos, int window) {
+  return window > 0 ? max(0, qpos - window + 1) : 0;
+}
+__device__ __forceinline__ int key_hi(int qpos, int skv, int causal) {
+  return causal ? min(skv - 1, qpos) : skv - 1;
+}
+
+// The kv tiles [*begin, *end) that query rows [q_first, q_last] need.  A
+// row with no key left (only possible with a window, once qpos >= Skv +
+// window - 1, and then for every later row) averages over all keys, so
+// such a block visits every tile.
+__device__ __forceinline__ void tile_range(int q_first, int q_last,
+                                           const Params& p, int bkv,
+                                           int* begin, int* end) {
+  if (key_lo(q_last, p.window) > key_hi(q_last, p.skv, p.causal)) {
+    *begin = 0;
+    *end = (p.skv + bkv - 1) / bkv;
+  } else {
+    *begin = key_lo(q_first, p.window) / bkv;
+    *end = key_hi(q_last, p.skv, p.causal) / bkv + 1;
+  }
+}
+
+// The score of (qpos, kpos) after masking: -inf for kv padding (p = 0),
+// MASKED for a causal or window mask.
+__device__ __forceinline__ float mask_score(float x, int qpos, int kpos,
+                                            const Params& p) {
+  if (kpos >= p.skv) return -INFINITY;
+  if ((p.causal && kpos > qpos) || (p.window > 0 && kpos <= qpos - p.window))
+    return MASKED;
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BQ = 128;       // query rows per block: two warpgroups
+constexpr int TC_BKV = 128;      // keys per tile
+constexpr int TC_THREADS = 256;
+
+// Shared-memory tile geometry for head dim HD (padded to HDP >= 16).  A
+// tile of ROWS rows is HDP*2/RB column blocks of RB bytes per row (RB =
+// 128, 64 or 32: the widest swizzle the row allows), each block ROWS x RB
+// as TMA writes it and wgmma reads it in the B128/B64/B32 layouts: 16-byte
+// chunk c of row r sits at chunk c ^ ((byte offset >> 7) & (RB/16 - 1)).
+// Block bases are multiples of 1 KB, as the swizzles need.
+template <int HD>
+struct Tile {
+  static constexpr int HDP = HD < 16 ? 16 : HD;
+  static constexpr int RB = HDP * 2 < 128 ? HDP * 2 : 128;
+  static constexpr int NBLK = HDP * 2 / RB;       // column blocks per row
+  // wgmma descriptor layout type: 1 = B128, 2 = B64, 3 = B32
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  static constexpr int Q_BYTES = TC_BQ * HDP * 2;
+  static constexpr int KV_BYTES = TC_BKV * HDP * 2;
+  static constexpr int STAGES = 3;                // the K/V ring
+  static constexpr int BYTES = Q_BYTES + STAGES * 2 * KV_BYTES;
+  // 1 KB alignment slack, then the ring's full and empty mbarriers and Q's
+  static constexpr int SMEM = BYTES + 1024 + 8 * (2 * STAGES + 1);
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ----- wgmma ---------------------------------------------------------------
+
+// Matrix descriptor: start address, leading and stride byte offsets (16-byte
+// units), swizzle layout type.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from touching accumulators around an async wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D (64 x 128, fp32) (+)= A (64 x 16, smem, K-major) * B (16 x 128, smem,
+// K-major); scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 16, fp32) += A (64 x 16 bf16, registers) * B (16 x 16, smem,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 32, fp32) += A (64 x 16 bf16, registers) * B (16 x 32, smem,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) += A (64 x 16 bf16, registers) * B (16 x 64, smem,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16 bf16, registers) * B (16 x 128, smem,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// 2^x on the SFU; arguments here are <= 0, and a result below 2^-126
+// (a weight ~1e-38 of the row's largest) flushes to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Scale one S tile into the exp2 domain, mask it where `full` is false, and
+// turn it into p = exp2(x - m) in place; updates m and this thread's part
+// of l and returns the rescale factors of the rows' old m in c0, c1.
+template <int SN>
+__device__ __forceinline__ void softmax_tile(float* s, bool full, int qpos0,
+                                             int qpos1, int kv_first,
+                                             int lane, float scale_log2,
+                                             const Params& p, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& c0, float& c1) {
+  if (full) {
+#pragma unroll
+    for (int i = 0; i < SN; ++i) s[i] *= scale_log2;
+  } else {
+#pragma unroll
+    for (int i = 0; i < SN; ++i) {
+      const int kpos = kv_first + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+      s[i] = mask_score(s[i] * scale_log2, (i % 4) < 2 ? qpos0 : qpos1, kpos,
+                        p);
+    }
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < SN; i += 4) {
+    mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  c0 = ex2(m0 - mn0);
+  c1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < SN; i += 4) {
+    s[i] = ex2(s[i] - mn0);
+    s[i + 1] = ex2(s[i + 1] - mn0);
+    s[i + 2] = ex2(s[i + 2] - mn1);
+    s[i + 3] = ex2(s[i + 3] - mn1);
+    ls0 += s[i] + s[i + 1];
+    ls1 += s[i + 2] + s[i + 3];
+  }
+  l0 = l0 * c0 + ls0;
+  l1 = l1 * c1 + ls1;
+}
+
+// ----- mbarriers and named barriers ------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t addr, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(addr), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t addr) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+               :: "r"(addr) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t addr, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(TC_THREADS) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(TC_THREADS) : "memory");
+}
+
+// ----- TMA ---------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t addr, uint32_t bytes) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
+               :: "r"(addr), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t mbar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(mbar)
+      : "memory");
+}
+
+// Thread t of warp w (0..7) holds, of each accumulator (wgmma's layout:
+// 16 rows per warp, blocks of 8 columns), rows 16w + t/4 and +8, columns
+// 2(t%4) and +1: element i is row +8*((i%4)/2), column 8(i/4) + 2(t%4) +
+// i%2.  The P fragments of k-step j are S blocks 2j and 2j+1.  The tensor
+// maps of q, k, v sit in the parameter space (__grid_constant__), where
+// TMA reads them.
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS + 128, 1)
+flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            __nv_bfloat16* __restrict__ o, const Params p) {
+  using L = Tile<HD>;
+  constexpr int HDP = L::HDP;
+  constexpr int SN = TC_BKV / 2;
+  constexpr int ON = HDP / 2;
+  constexpr int NST = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  auto k_s = [&](int st) { return base + L::Q_BYTES + st * 2 * L::KV_BYTES; };
+  auto v_s = [&](int st) { return k_s(st) + L::KV_BYTES; };
+  // full[st]: the stage's copies have landed (TMA's byte count); empty[st]:
+  // every consumer thread is past its PV
+  const uint32_t bars = base + L::BYTES;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (NST + st); };
+  const uint32_t q_full = bars + 8 * 2 * NST;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y;
+  const int bi = bh / p.h, head = bh % p.h;
+  const int kv_head = head / (p.h / p.kvh);
+  const int q_first = (gridDim.x - 1 - blockIdx.x) * TC_BQ;
+
+  int t_begin, t_end;
+  tile_range(q_first, min(q_first + TC_BQ - 1, p.sq - 1), p, TC_BKV,
+             &t_begin, &t_end);
+  const int n = t_end - t_begin;
+
+  if (tid == 0) {
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), TC_THREADS);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= TC_THREADS / 32) {
+    // the producer warpgroup hands its registers to the consumers; one
+    // lane keeps the ring full with TMA copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == TC_THREADS) {
+      mbar_expect_tx(q_full, L::Q_BYTES);
+#pragma unroll
+      for (int cb = 0; cb < L::NBLK; ++cb)
+        tma_load_4d(q_s + cb * TC_BQ * L::RB, &tm_q, q_full, cb * L::RB / 2,
+                    q_first, head, bi);
+      for (int i = 0; i < n; ++i) {
+        const int st = i % NST, kv_first = (t_begin + i) * TC_BKV;
+        if (i >= NST) mbar_wait(empty(st), ((i - NST) / NST) & 1);
+        mbar_expect_tx(full(st), 2 * L::KV_BYTES);
+#pragma unroll
+        for (int cb = 0; cb < L::NBLK; ++cb) {
+          tma_load_4d(k_s(st) + cb * TC_BKV * L::RB, &tm_k, full(st),
+                      cb * L::RB / 2, kv_first, kv_head, bi);
+          tma_load_4d(v_s(st) + cb * TC_BKV * L::RB, &tm_v, full(st),
+                      cb * L::RB / 2, kv_first, kv_head, bi);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = tid / 128;
+    __nv_bfloat16* ob = o + bi * p.o_sb + head * p.o_sh;
+    const int row0 = 16 * warp + lane / 4;
+    const int qpos0 = q_first + row0, qpos1 = qpos0 + 8;
+    const int wg_lo = q_first + 64 * wg, wg_hi = wg_lo + 63;
+    const float scale_log2 = p.scale * LOG2E;
+
+    float o_acc[ON];
+#pragma unroll
+    for (int i = 0; i < ON; ++i) o_acc[i] = 0.f;
+    float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+    uint32_t pa[TC_BKV / 16][4];
+    float s[SN];
+
+    auto issue_s = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t kb_off = (kk * 32) / L::RB, kin = (kk * 32) % L::RB;
+        const uint64_t da = make_desc(
+            q_s + kb_off * TC_BQ * L::RB + wg * 64 * L::RB + kin, 16,
+            8 * L::RB, L::LAYOUT);
+        const uint64_t db = make_desc(k_s(st) + kb_off * TC_BKV * L::RB + kin,
+                                      16, 8 * L::RB, L::LAYOUT);
+        wgmma_ss_n128(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int st) {
+#pragma unroll
+      for (int j = 0; j < TC_BKV / 16; ++j) {
+        const uint64_t db = make_desc(v_s(st) + j * 16 * L::RB,
+                                      TC_BKV * L::RB, 8 * L::RB, L::LAYOUT);
+        wgmma_rs<HDP>(o_acc, pa[j], db);
+      }
+      wgmma_commit();
+    };
+    auto softmax = [&](int kv_first, float& c0, float& c1) {
+      const bool full_tile = kv_first + TC_BKV <= p.skv &&
+                             (!p.causal || kv_first + TC_BKV - 1 <= wg_lo) &&
+                             (p.window <= 0 || kv_first > wg_hi - p.window);
+      softmax_tile<SN>(s, full_tile, qpos0, qpos1, kv_first, lane, scale_log2,
+                       p, m0, m1, l0, l1, c0, c1);
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < TC_BKV / 16; ++j) {
+        pa[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+        pa[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+        pa[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+        pa[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+      }
+    };
+    // the warpgroups take turns to issue their products (ping-pong): one
+    // runs its softmax while the tensor cores work for the other.  Barrier
+    // 1 + w lets warpgroup w issue; warpgroup 0 goes first.
+    auto my_turn = [&]() { named_sync(1 + wg); };
+    auto your_turn = [&]() { named_arrive(2 - wg); };
+    if (wg == 1) your_turn();
+
+    // tile 0: S, softmax, P
+    mbar_wait(q_full, 0);
+    mbar_wait(full(0), 0);
+    my_turn();
+    wgmma_fence();
+    issue_s(0);
+    your_turn();
+    wgmma_wait_0();
+    fence_regs<SN>(s);
+    {
+      float c0, c1;
+      softmax(t_begin * TC_BKV, c0, c1);
+    }
+    pack();
+    // then S(i) and PV(i - 1) together: the softmax of tile i runs while
+    // the tensor cores finish PV(i - 1)
+    for (int i = 1; i < n; ++i) {
+      mbar_wait(full(i % NST), (i / NST) & 1);
+      my_turn();
+      fence_regs<ON>(o_acc);
+      wgmma_fence();
+      issue_s(i % NST);
+      issue_pv((i - 1) % NST);
+      your_turn();
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_regs<SN>(s);
+      float c0, c1;
+      softmax((t_begin + i) * TC_BKV, c0, c1);
+      wgmma_wait_0();
+      fence_regs<ON>(o_acc);
+      mbar_arrive(empty((i - 1) % NST));   // PV(i - 1) is done with it
+#pragma unroll
+      for (int j = 0; j < ON; j += 4) {
+        o_acc[j] *= c0;
+        o_acc[j + 1] *= c0;
+        o_acc[j + 2] *= c1;
+        o_acc[j + 3] *= c1;
+      }
+      pack();
+    }
+    // PV of the last tile; warpgroup 1 issues last and hands no turn on
+    my_turn();
+    fence_regs<ON>(o_acc);
+    wgmma_fence();
+    issue_pv((n - 1) % NST);
+    if (wg == 0) your_turn();
+    wgmma_wait_0();
+    fence_regs<ON>(o_acc);
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < ON; i += 4) {
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      if (col < HD) {
+        if (qpos0 < p.sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + qpos0 * p.o_ss + col) =
+              __floats2bfloat162_rn(o_acc[i] * inv0, o_acc[i + 1] * inv0);
+        if (qpos1 < p.sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + qpos1 * p.o_ss + col) =
+              __floats2bfloat162_rn(o_acc[i + 2] * inv1, o_acc[i + 3] * inv1);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (so the
+// library needs no -lcuda); null if the driver has none
+EncodeTiledFn encode_fn() {
+  static const EncodeTiledFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                            cudaEnableDefault, &res) ==
+                        cudaSuccess &&
+                    res == cudaDriverEntryPointSuccess;
+    return ok ? reinterpret_cast<EncodeTiledFn>(ptr) : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, heads, S, hd) bf16 view with (b, head, seq) strides in elements, as
+// boxes of RB bytes x 128 rows in the tile's swizzle.  Rows past S and the
+// columns past hd 8 (its box is 16 wide) are filled with zeros.
+template <int HD>
+bool make_map(CUtensorMap* map, const void* ptr, int b, int heads, int seq,
+              long long sb, long long sh, long long ss) {
+  using L = Tile<HD>;
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)seq,
+                              (cuuint64_t)heads, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)(L::RB / 2), (cuuint32_t)TC_BKV, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = L::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : L::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------------------
+// fp32 on the CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;
 constexpr int BKV = 64;
 constexpr int NTHREADS = 256;
-constexpr float MASKED = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Shared-memory layout, in floats.  Q and K rows are padded by one float so
 // that the 16 column-threads of the score tile read 16 different banks.
@@ -76,20 +665,12 @@ struct Smem {
   static constexpr size_t BYTES = FLOATS * sizeof(float);
 };
 
-// First and last key a query row may see, before kv padding.
-__device__ __forceinline__ int key_lo(int qpos, int window) {
-  return window > 0 ? max(0, qpos - window + 1) : 0;
-}
-__device__ __forceinline__ int key_hi(int qpos, int skv, int causal) {
-  return causal ? min(skv - 1, qpos) : skv - 1;
-}
-
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NTHREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq,
-                       int skv, int h, int kvh, int causal, int window,
-                       float scale) {
+flash_attention_fp32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ o, const Params p) {
   using L = Smem<HD>;
   extern __shared__ float smem[];
   float* Qs = smem + L::Q_OFF;
@@ -102,19 +683,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.y;
+  const int bi = bh / p.h, head = bh % p.h;
+  const int kv_head = head / (p.h / p.kvh);
   const int q_first = blockIdx.x * BQ;
-  const int kv_row = (bh / h) * kvh + (bh % h) / (h / kvh);
-  const T* qb = q + (size_t)bh * sq * HD;
-  const T* kb = k + (size_t)kv_row * skv * HD;
-  const T* vb = v + (size_t)kv_row * skv * HD;
-  T* ob = o + (size_t)bh * sq * HD;
+  const float* qb = q + bi * p.q_sb + head * p.q_sh;
+  const float* kb = k + bi * p.k_sb + kv_head * p.k_sh;
+  const float* vb = v + bi * p.v_sb + kv_head * p.v_sh;
+  float* ob = o + bi * p.o_sb + head * p.o_sh;
 
   // Q tile, pre-scaled; rows past Sq are zero and never stored
   for (int i = tid; i < BQ * HD; i += NTHREADS) {
     const int r = i / HD, d = i % HD;
     const int qpos = q_first + r;
-    Qs[r * L::QK_STRIDE + d] =
-        qpos < sq ? to_float(qb[(size_t)qpos * HD + d]) * scale : 0.f;
+    Qs[r * L::QK_STRIDE + d] = qpos < p.sq ? qb[qpos * p.q_ss + d] * p.scale : 0.f;
   }
   for (int r = tid; r < BQ; r += NTHREADS) {
     Ms[r] = MASKED;
@@ -122,18 +703,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Cs[r] = 1.f;
   }
 
-  // kv tiles this block needs.  A row with no key left (only possible with
-  // a window, once qpos >= Skv + window - 1, and then for every later row)
-  // averages over all keys, so such a block visits every tile.
-  const int q_last = min(q_first + BQ - 1, sq - 1);
   int t_begin, t_end;
-  if (key_lo(q_last, window) > key_hi(q_last, skv, causal)) {
-    t_begin = 0;
-    t_end = (skv + BKV - 1) / BKV;
-  } else {
-    t_begin = key_lo(q_first, window) / BKV;
-    t_end = key_hi(q_last, skv, causal) / BKV + 1;
-  }
+  tile_range(q_first, min(q_first + BQ - 1, p.sq - 1), p, BKV, &t_begin,
+             &t_end);
 
   // score tile: thread (ty, tx) owns rows ty + 16i, columns tx + 16j
   const int ty = tid / 16, tx = tid % 16;
@@ -158,9 +730,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BKV * HD; i += NTHREADS) {
       const int r = i / HD, d = i % HD;
       const int kpos = kv_first + r;
-      const bool in = kpos < skv;
-      Ks[r * L::QK_STRIDE + d] = in ? to_float(kb[(size_t)kpos * HD + d]) : 0.f;
-      Vs[r * HD + d] = in ? to_float(vb[(size_t)kpos * HD + d]) : 0.f;
+      const bool in = kpos < p.skv;
+      Ks[r * L::QK_STRIDE + d] = in ? kb[kpos * p.k_ss + d] : 0.f;
+      Vs[r * HD + d] = in ? vb[kpos * p.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -185,18 +757,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
-      const int qpos = q_first + r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const int kpos = kv_first + c;
-        float val = s[i][j];
-        if (kpos >= skv)
-          val = -INFINITY;  // padding: never a key, p = 0
-        else if ((causal && kpos > qpos) ||
-                 (window > 0 && kpos <= qpos - window))
-          val = MASKED;
-        Ss[r * L::S_STRIDE + c] = val;
+        Ss[r * L::S_STRIDE + c] = mask_score(s[i][j], q_first + r, kv_first + c, p);
       }
     }
     __syncthreads();
@@ -237,15 +801,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll 4
     for (int kk = 0; kk < BKV; ++kk) {
-      float p[RPT], vv[CPT];
+      float pr[RPT], vv[CPT];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) p[i] = Ss[(orow + TR * i) * L::S_STRIDE + kk];
+      for (int i = 0; i < RPT; ++i) pr[i] = Ss[(orow + TR * i) * L::S_STRIDE + kk];
 #pragma unroll
       for (int j = 0; j < CPT; ++j) vv[j] = Vs[kk * HD + ocol + TC * j];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
+        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(pr[i], vv[j], acc[i][j]);
     }
   }
 
@@ -253,71 +817,106 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int r = orow + TR * i;
     const int qpos = q_first + r;
-    if (qpos < sq) {
+    if (qpos < p.sq) {
       const float inv = 1.f / fmaxf(Ls[r], 1e-30f);
 #pragma unroll
       for (int j = 0; j < CPT; ++j)
-        ob[(size_t)qpos * HD + ocol + TC * j] = from_float<T>(acc[i][j] * inv);
+        ob[qpos * p.o_ss + ocol + TC * j] = acc[i][j] * inv;
     }
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int sq, int skv, int h, int kvh, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  auto kern = flash_attention_kernel<T, HD>;
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int bh, const Params& p, cudaStream_t stream) {
+  const int b = bh / p.h;
+  CUtensorMap mq, mk, mv;
+  if (!make_map<HD>(&mq, q, b, p.h, p.sq, p.q_sb, p.q_sh, p.q_ss) ||
+      !make_map<HD>(&mk, k, b, p.kvh, p.skv, p.k_sb, p.k_sh, p.k_ss) ||
+      !make_map<HD>(&mv, v, b, p.kvh, p.skv, p.v_sb, p.v_sh, p.v_ss))
+    return cudaErrorInvalidValue;
+  auto kern = flash_attention_bf16_kernel<HD>;
+  const size_t bytes = Tile<HD>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.sq + TC_BQ - 1) / TC_BQ, bh);
+  kern<<<grid, TC_THREADS + 128, bytes, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), p);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
+                        int bh, const Params& p, cudaStream_t stream) {
+  auto kern = flash_attention_fp32_kernel<HD>;
   const size_t bytes = Smem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
+  const dim3 grid((p.sq + BQ - 1) / BQ, bh);
   kern<<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, h, kvh, causal,
-      window, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* o, int bh, int sq, int skv, int h, int kvh,
-                        int causal, int window, float scale,
-                        cudaStream_t stream) {
-  switch (hd) {
-    case 8:
-      return launch<T, 8>(q, k, v, o, bh, sq, skv, h, kvh, causal, window, scale, stream);
-    case 16:
-      return launch<T, 16>(q, k, v, o, bh, sq, skv, h, kvh, causal, window, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, bh, sq, skv, h, kvh, causal, window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, bh, sq, skv, h, kvh, causal, window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, bh, sq, skv, h, kvh, causal, window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+cudaError_t dispatch(int hd, int dtype, const void* q, const void* k,
+                     const void* v, void* o, int bh, const Params& p,
+                     cudaStream_t s) {
+  if (dtype == 0) {
+    switch (hd) {
+      case 8: return launch_fp32<8>(q, k, v, o, bh, p, s);
+      case 16: return launch_fp32<16>(q, k, v, o, bh, p, s);
+      case 32: return launch_fp32<32>(q, k, v, o, bh, p, s);
+      case 64: return launch_fp32<64>(q, k, v, o, bh, p, s);
+      case 128: return launch_fp32<128>(q, k, v, o, bh, p, s);
+    }
+  } else if (dtype == 1) {
+    switch (hd) {
+      case 8: return launch_bf16<8>(q, k, v, o, bh, p, s);
+      case 16: return launch_bf16<16>(q, k, v, o, bh, p, s);
+      case 32: return launch_bf16<32>(q, k, v, o, bh, p, s);
+      case 64: return launch_bf16<64>(q, k, v, o, bh, p, s);
+      case 128: return launch_bf16<128>(q, k, v, o, bh, p, s);
+    }
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// q (B, H, Sq, hd), k and v (B, KVH, Skv, hd), out (B, H, Sq, hd), each
+// addressed as base + b*strides[0] + head*strides[1] + pos*strides[2]
+// (elements; strides = q's three, k's, v's, out's), hd contiguous, every
+// row 16-byte aligned.  dtype: 0 = float32, 1 = bfloat16.  window <= 0
+// means no window.  Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* o, int bh,
-                                         int sq, int skv, int h, int kvh,
-                                         int hd, int causal, int window,
-                                         float scale, int dtype,
-                                         void* stream) {
-  if (bh <= 0 || sq <= 0 || skv <= 0 || h <= 0 || kvh <= 0 || h % kvh)
+                                         const void* v, void* o, int b,
+                                         int h, int kvh, int sq, int skv,
+                                         int hd, const long long* strides,
+                                         int causal, int window, float scale,
+                                         int dtype, void* stream) {
+  if (b <= 0 || sq <= 0 || skv <= 0 || h <= 0 || kvh <= 0 || h % kvh ||
+      (long long)b * h > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_hd<float>(hd, q, k, v, o, bh, sq, skv, h, kvh,
-                                   causal, window, scale, s);
-  if (dtype == 1)
-    return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, bh, sq, skv, h,
-                                           kvh, causal, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+  Params p;
+  p.sq = sq;
+  p.skv = skv;
+  p.h = h;
+  p.kvh = kvh;
+  p.causal = causal;
+  p.window = window;
+  p.scale = scale;
+  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
+  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
+  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
+  p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
+  return (int)dispatch(hd, dtype, q, k, v, o, b * h, p,
+                       static_cast<cudaStream_t>(stream));
 }
+

@@ -3,7 +3,7 @@
 ``flash_attention`` (BSHD), ``decode_attention`` (one query token over the
 (B, Sc, KVH, hd) cache), ``mlstm_chunk`` ((B, H, L, hd)) and ``ssm_scan``
 ((B, L, D, ST)) dispatch on the tensor's device: a CUDA tensor goes to the
-hand-written kernel (``flash_attention_bhsd``, ``decode_attention_packed``,
+hand-written kernel (``flash_attention_bshd``, ``decode_attention_packed``,
 ``mlstm_chunk_step``, ``ssm_chunk_scan``), a CPU tensor to its plain
 version (``attention_plain``, ``decode_attention_plain``,
 ``mlstm_chunk_plain``, ``ssm_chunk_scan_plain``).  There is no other
@@ -22,10 +22,11 @@ from repro_torch.kernels import decode_attention as decode_mod
 from repro_torch.kernels import mlstm_scan
 from repro_torch.kernels import ssm_scan as scan_mod
 from repro_torch.kernels.flash_attention import (attention_plain,
-                                                 flash_attention_bhsd)
+                                                 flash_attention_bshd)
 
 
 def _to_bhsd(x: torch.Tensor) -> torch.Tensor:
+    """The plain version's (B·H, S, hd) copy of a (B, S, H, hd) tensor."""
     b, s, h, hd = x.shape
     return x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
 
@@ -41,9 +42,11 @@ def _bshd(fn, q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd) -> (B, Sq, H, hd)."""
+    """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd) -> (B, Sq, H, hd).  On
+    the card the kernel reads q, k, v and writes the output in this layout
+    in place; the plain version works on (B·H, S, hd) copies."""
     if q.device.type == "cuda":
-        return _bshd(flash_attention_bhsd, q, k, v, causal, window)
+        return flash_attention_bshd(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
         return _bshd(attention_plain, q, k, v, causal, window)
     raise ValueError(f"no attention path for device {q.device}")

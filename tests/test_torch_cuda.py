@@ -32,6 +32,19 @@ def card():
     (2, 77, 130, 4, 2, 32, True, None, torch.float32),
     (2, 100, 100, 4, 2, 16, True, 7, torch.float32),
     (2, 77, 90, 4, 2, 8, False, None, torch.float32),
+    # bf16 twins on the tensor-core kernel: Sq = 1, Skv off the 128-key
+    # tile, windows 1 / 7 / 64, a window without causal, no key left
+    (2, 1, 77, 4, 2, 128, True, None, torch.bfloat16),
+    (2, 77, 130, 4, 2, 32, True, None, torch.bfloat16),
+    (2, 130, 77, 4, 4, 8, True, None, torch.bfloat16),
+    (2, 300, 300, 4, 2, 128, True, 1, torch.bfloat16),
+    (2, 100, 100, 4, 2, 16, True, 7, torch.bfloat16),
+    (2, 300, 300, 4, 2, 64, True, 64, torch.bfloat16),
+    (2, 77, 90, 4, 2, 8, False, None, torch.bfloat16),
+    (2, 77, 77, 4, 2, 32, False, 7, torch.bfloat16),
+    (2, 300, 100, 4, 2, 128, True, 64, torch.bfloat16),
+    # starcoder2-3b's heads and window, shortened
+    (1, 600, 600, 24, 2, 128, True, 512, torch.bfloat16),
 ])
 def test_cuda_kernel_matches_plain(card, b, sq, skv, h, kvh, hd, causal,
                                    window, dtype):
@@ -49,6 +62,38 @@ def test_cuda_kernel_matches_plain(card, b, sq, skv, h, kvh, hd, causal,
         out.float().cpu().numpy(),
         fa.attention_plain(q, k, v, **kw).float().cpu().numpy(),
         atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("hd,dtype", [(128, torch.bfloat16),
+                                      (64, torch.bfloat16),
+                                      (8, torch.bfloat16),
+                                      (32, torch.float32)])
+def test_cuda_kernel_reads_the_model_layout_in_place(card, hd, dtype):
+    """q, k, v as strided (B, S, H, hd) slices of one fused projection go
+    through ``ops.flash_attention`` with one launch and no copy; the
+    output is (B, S, H, hd) and contiguous."""
+    b, s, h, kvh = 2, 150, 8, 2
+    qkv = torch.randn(b, s, h + 2 * kvh, hd, generator=card,
+                      device="cuda").to(dtype)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kvh], qkv[:, :, h + kvh:]
+    before = fa.LAUNCHES
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    assert out.shape == q.shape and out.is_contiguous()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    np.testing.assert_allclose(
+        out.float().cpu().numpy(),
+        ops.flash_attention_plain(q, k, v, causal=True).float().cpu()
+        .numpy(), atol=tol, rtol=tol)
+
+
+def test_cuda_kernel_refuses_misaligned_rows(card):
+    q = torch.zeros(1, 8, 4, 17, device="cuda",
+                    dtype=torch.bfloat16)[..., :16]
+    k = torch.zeros(1, 8, 2, 16, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bshd(q, k, k)
 
 
 def test_cuda_kernel_refuses_unsupported_head_dim(card):
