@@ -11,14 +11,17 @@ Phases, each printing one line per case:
      kernel, each launching once per call, and on strided (B, S, H, hd)
      views through ``ops.flash_attention``; for the mLSTM chunk kernel
      per output h, c, n, m, with zero and carried state, a three-chunk
-     carried sequence and padded-gate tails);
+     carried sequence, padded-gate tails, and L on both sides of the
+     one-pass threshold, through the one pass, the tensor-core passes
+     (bf16) and the CUDA-core passes (fp32));
   4. kernel, plain and library times at the paths' shapes, beside the
      bound of the card: attention at the prefill shapes (S 2048 for
      qwen3-0.6b, qwen1.5-0.5b and jamba-v0.1-52b, S 4096 with the window
      for starcoder2-3b) and the serving shape (S 16), CUDA events and the
      profiler's device time of the kernel and of
      ``scaled_dot_product_attention``; the mLSTM chunk at (B*H 16, L 16
-     and 256, hd 1024), which no single PyTorch call computes;
+     and 256, hd 1024), which no single PyTorch call computes, and the
+     device time of its one pass and its two passes at L 8 to 32;
   5. full-width prefill of qwen3-0.6b and qwen1.5-0.5b (B=4, S=2048) and of
      xlstm-1.3b (B=4, S=1024: four mLSTM chunks per layer): finite logits,
      one kernel launch per attention layer and per mLSTM layer and chunk,
@@ -32,11 +35,13 @@ Phases, each printing one line per case:
      qwen3-0.6b -> qwen1.5-0.5b, then text-to-img, xlstm-1.3b ->
      qwen1.5-0.5b (``sim/workloads.py``);
   7. decode: the decode-attention kernel against its plain version
-     (``check_decode``: G 1/2/12, hd 64/128, Sc 1 to 4096, valid from 0 to
-     Sc, bf16 and fp32, the cache in the model's strided layout), its
-     times at the decode path's shapes (``time_decode``: qwen3-0.6b and
-     qwen1.5-0.5b at B 4, Sc 2080, starcoder2-3b at B 4, Sc 4096, against
-     ``scaled_dot_product_attention``, events and device time), then
+     (``check_decode``: G 1/2/4/12, hd 64/128, Sc 1 to 4096, valid from 0
+     to Sc and off the tile, bf16 on the tensor-core kernel and fp32 on
+     the exact one, the cache in the model's strided layout), its times
+     at the decode path's shapes (``time_decode``: qwen3-0.6b,
+     qwen1.5-0.5b and jamba-v0.1-52b at B 4, Sc 2080, starcoder2-3b at B
+     4, Sc 4096, against ``scaled_dot_product_attention``, events and
+     device time, and the kernel at other split targets), then
      ``Transformer.serve_decode`` at full width and depth in bf16 after
      each model's prefill
      (``decode``: qwen3-0.6b and qwen1.5-0.5b, B 4, prompt 2048, 32 steps;
@@ -104,17 +109,21 @@ XLSTM_LOGIT_REL_TOL = 0.1
 # prefix of both attention kernels' symbols: flash_attention_bf16_kernel
 # (tensor cores) and flash_attention_fp32_kernel (exact, CUDA cores)
 ATTN_KERNEL = "flash_attention_"
-MLSTM_KERNELS = ("mlstm_gates_kernel", "mlstm_state_kernel")  # its passes
 # mLSTM chunk, kernel vs plain (both fp32 from the same inputs): the repo's
 # tolerances for the Pallas kernel against its oracle (tests/test_kernels.py)
 # |diff| <= atol + rtol |ref| for h, c, n; m is a sum of log gates
 MLSTM_TOL = {"h": (2e-3, 2e-2), "c": (2e-3, 2e-2), "n": (2e-3, 2e-2),
              "m": (1e-4, 1e-4)}
 # decode attention, kernel vs plain (both fp32 inside): |diff| <= tol +
-# tol |ref|, the reference's decode tolerances (tests/test_kernels.py)
+# tol |ref|, the reference's decode tolerances (tests/test_kernels.py),
+# and ROW_TOL's bound on each head's output row: at Sc in the thousands
+# the outputs are ~0.04, where the fixed tol misses a lost or doubled tile
 DECODE_TOL = {torch.float32: 3e-3, torch.bfloat16: 2e-2}
-DECODE_KERNELS = ("decode_attention_kernel",
-                  "decode_attention_combine_kernel")   # its two passes
+# the decode kernel's symbols: the bf16 (tensor-core) and fp32 (exact)
+# split passes, and the combine pass both end with
+DECODE_BF16 = ("decode_attention_bf16_kernel",
+               "decode_attention_combine_kernel")
+DECODE_KERNELS = DECODE_BF16 + ("decode_attention_fp32_kernel",)
 # fp32 prefill + decode vs the prefill of the whole sequence: max |logit
 # diff| over max |logit|.  The two paths sum in other orders (the prefill
 # and decode kernels, GEMMs of 1 row against thousands), ~1e-6 of each
@@ -429,6 +438,17 @@ MLSTM_CASES = [
     (4, 100, 64, torch.float32, False, 3, 0),
     (4, 100, 128, torch.float32, True, 1, 0),
     (2, 64, 1024, torch.float32, True, 2, 0),
+    # both sides of the one-pass threshold (MAX_SHORT = 16), bf16 and fp32
+    (16, 17, 1024, torch.bfloat16, True, 2, 0),
+    (4, 16, 1024, torch.float32, True, 2, 5),
+    (4, 17, 1024, torch.float32, True, 2, 5),
+    # the one pass at hd 64 / 128 and ragged L
+    (4, 7, 64, torch.bfloat16, True, 3, 2),
+    (4, 13, 128, torch.float32, True, 2, 0),
+    (4, 1, 1024, torch.bfloat16, True, 2, 0),
+    # the tensor-core passes at ragged L, padded (and hd 64)
+    (8, 100, 1024, torch.bfloat16, True, 2, 37),
+    (4, 200, 64, torch.bfloat16, True, 2, 11),
 ]
 
 
@@ -484,6 +504,7 @@ def check_mlstm(ms) -> float:
         emit({"phase": "check_mlstm", "bh": bh, "l": l, "hd": hd,
               "dtype": str(dtype).split(".")[-1], "carried": carried,
               "chunks": chunks, "pad": pad,
+              "kernels": ms.passes(l, hd, dtype),
               **{f"max_abs_err_{n}": e for n, e in errs.items()},
               "tol": MLSTM_TOL, "ok": ok})
         if not ok:
@@ -515,20 +536,22 @@ def kernel_device_ms(fn, names, launches: int) -> dict:
 def time_mlstm(ms, peaks) -> list:
     """Kernel and plain times of the mLSTM chunk at the path's shapes
     (B*H = 16 heads of 1024, L = 16 at serving and 256 in a long
-    prefill), bf16 q/k/v and a carried state, beside the bound."""
+    prefill) and at L = 17, the shortest chunk of the two passes, bf16
+    q/k/v and a carried state, beside the bound."""
     flops_rate, mem_rate = peaks
     gen = torch.Generator(device="cuda").manual_seed(4)
     bh, hd, dt = 16, 1024, torch.bfloat16
     rows = []
-    for l in (16, 256):
+    for l in (16, 17, 256):
         xs = mlstm_inputs(gen, bh, l, hd, dt)
         carry = mlstm_carry(ms, gen, bh, l, hd, dt, True)
-        iters = 50 if l == 16 else 20
+        iters = 50 if l < 256 else 20
         t_ms = cuda_ms(lambda: ms.mlstm_chunk_step(*xs, *carry), iters)
         plain_ms = cuda_ms(lambda: ms.mlstm_chunk_plain(*xs, *carry),
                            max(iters // 4, 5))
         by_pass = kernel_device_ms(
-            lambda: ms.mlstm_chunk_step(*xs, *carry), MLSTM_KERNELS, 10)
+            lambda: ms.mlstm_chunk_step(*xs, *carry),
+            ms.passes(l, hd, dt), 10)
         dev_ms = sum(by_pass.values())
         # work these inputs need: the causal (t, j) pairs of q k^T and
         # W v, the two (L, hd) x (hd, hd) products with C, the n terms
@@ -675,14 +698,14 @@ def prefill_xlstm(ms, ops, Transformer, get_config) -> int:
         # the profile is taken at S = 256 (one chunk per layer)
         device_ms, kernels = device_profile(
             lambda: model.serve_prefill(tokens[:, :s_prof]),
-            expect={MLSTM_KERNELS[0]: n_mlstm * (s_prof // 256)})
+            expect={ms.TWO_PASS_TC[0]: n_mlstm * (s_prof // 256)})
         torch.cuda.synchronize()
     finite = bool(torch.isfinite(logits).all())
     scale = plain.float().abs().max().item()
     rel_bf16 = (logits.float() - plain.float()).abs().max().item() / scale
     state_c_shape = list(cache.layers[0].c.shape)
     mlstm_ms = sum(t for name, _, t in kernels
-                   if any(k in name for k in MLSTM_KERNELS))
+                   if any(k in name for k in ms.KERNELS))
     del model, plain, cache
     torch.cuda.empty_cache()
 
@@ -749,62 +772,80 @@ def decode_case(gen, b, sc, h, kvh, hd, dtype, layout: str):
     return q, k, v
 
 
-def check_decode(dec) -> float:
+def check_decode(dec) -> tuple:
     """The decode kernel against ``decode_attention_plain`` on the card,
     one line per (G, hd, Sc, dtype, layout), with the max error for each
-    ``valid`` (0, 1, part of Sc, Sc: a full ring)."""
+    ``valid`` (0, 1, part of Sc, Sc - 3: off the 32-slot tile, Sc: a full
+    ring); returns the largest error and the largest error over its
+    row's max |ref|."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     b, kvh = 2, 2
-    worst = 0.0
+    worst = (0.0, 0.0)
     for dtype in (torch.bfloat16, torch.float32):
-        for g in (1, 2, 12):
+        for g in (1, 2, 4, 12):
             for hd in (64, 128):
                 for sc in (1, 7, 100, 2080, 4096):
                     layouts = ("model", "slice") if sc == 100 \
                         else ("model",)
                     for layout in layouts:
-                        worst = max(worst, _check_decode_case(
+                        err, row = _check_decode_case(
                             dec, gen, b, sc, g * kvh, kvh, hd, dtype,
-                            layout))
+                            layout)
+                        worst = (max(worst[0], err), max(worst[1], row))
     return worst
 
 
-def _check_decode_case(dec, gen, b, sc, h, kvh, hd, dtype, layout) -> float:
+def decode_row_ratio(out, ref, dtype) -> float:
+    """The largest |diff| / (ROW_TOL max|ref| of its row), over the heads'
+    output rows; a row whose reference is all zeros (valid 0) must come
+    out zeros."""
+    diff = (out.float() - ref.float()).abs()
+    bound = ROW_TOL[dtype] * ref.float().abs().amax(-1, keepdim=True)
+    ratio = torch.where(bound > 0, diff / bound.clamp_min(1e-30),
+                        torch.where(diff > 0, math.inf, 0.0))
+    return ratio.max().item()
+
+
+def _check_decode_case(dec, gen, b, sc, h, kvh, hd, dtype, layout) -> tuple:
     q, k, v = decode_case(gen, b, sc, h, kvh, hd, dtype, layout)
     qp = q.reshape(b * kvh, h // kvh, hd)
     tol = DECODE_TOL[dtype]
-    errs, ok = {}, True
-    for valid in sorted({0, 1, max(1, sc * 5 // 8), sc}):
+    errs, row_ratios, ok = {}, {}, True
+    for valid in sorted({0, 1, max(1, sc * 5 // 8), max(1, sc - 3), sc}):
         kw = dict(num_heads=h, num_kv_heads=kvh)
         out = dec.decode_attention_packed(qp, k, v, valid, **kw)
         ref = dec.decode_attention_plain(qp, k, v, valid, **kw)
         torch.cuda.synchronize()
         diff = (out.float() - ref.float()).abs()
         errs[valid] = diff.max().item()
+        row_ratios[valid] = decode_row_ratio(out, ref, dtype)
         ok &= out.shape == ref.shape and out.dtype == dtype \
             and bool((diff <= tol + tol * ref.float().abs()).all()) \
+            and row_ratios[valid] <= 1.0 \
             and math.isfinite(errs[valid]) \
             and (valid > 0 or not bool(out.any()))
+    over_row = {n: r * ROW_TOL[dtype] for n, r in row_ratios.items()}
     emit({"phase": "check_decode", "g": h // kvh, "hd": hd, "sc": sc,
           "b": b, "kvh": kvh, "dtype": str(dtype).split(".")[-1],
-          "layout": layout, "max_abs_err_by_valid": errs, "tol": tol,
-          "ok": ok})
+          "layout": layout, "max_abs_err_by_valid": errs,
+          "max_err_over_row_max_by_valid": over_row,
+          "tol": tol, "row_tol": ROW_TOL[dtype], "ok": ok})
     if not ok:
         raise AssertionError(f"decode kernel disagrees with plain: case "
                              f"{(b, sc, h, kvh, hd, dtype, layout)}")
-    return max(errs.values())
+    return max(errs.values()), max(over_row.values())
 
 
 # the decode path's attention shapes: (model, H, KVH, hd, Sc)
 DECODE_SHAPES = [("qwen3-0.6b", 16, 8, 128, 2080),
                  ("qwen1.5-0.5b", 16, 16, 64, 2080),
-                 ("starcoder2-3b", 24, 2, 128, 4096)]
+                 ("starcoder2-3b", 24, 2, 128, 4096),
+                 (JAMBA, 32, 8, 128, 2080)]
 
 
 def time_decode(dec, ops, peaks) -> list:
     """Kernel, plain and library times at the decode path's shapes, B 4,
-    bf16, every slot valid (the last step of the path), and the kernel's
-    device time at other split targets (``BLOCKS_PER_SM``).  The caches
+    bf16, every slot valid (the last step of the path).  The caches
     rotate over enough copies to exceed the 50 MB L2, as the path's layers
     each read their own cache."""
     import torch.nn.functional as F
@@ -828,18 +869,8 @@ def time_decode(dec, ops, peaks) -> list:
             return call
         kernel = rotating(lambda k, v: ops.decode_attention(q, k, v, valid))
         ms = cuda_ms(kernel, 200)
-        by_pass = kernel_device_ms(kernel, DECODE_KERNELS, 50)
+        by_pass = kernel_device_ms(kernel, DECODE_BF16, 50)
         dev_ms = sum(by_pass.values())
-        # the split target's effect: device ms at other blocks per SM
-        default = dec.BLOCKS_PER_SM
-        by_target = {default: dev_ms}
-        for target in (1, 4, 8):
-            dec.BLOCKS_PER_SM = target
-            try:
-                by_target[target] = sum(kernel_device_ms(
-                    kernel, DECODE_KERNELS, 50).values())
-            finally:
-                dec.BLOCKS_PER_SM = default
         plain_ms = cuda_ms(rotating(
             lambda k, v: ops.decode_attention_plain(q, k, v, valid)), 20)
         # the library's own layout, (B, KVH, Sc, hd), made outside the
@@ -866,7 +897,6 @@ def time_decode(dec, ops, peaks) -> list:
                "g": h // kvh, "sc": sc, "valid": valid, "dtype": "bfloat16",
                "cache_copies_rotated": n_sets, "ms": ms, "device_ms": dev_ms,
                "device_ms_by_pass": by_pass,
-               "device_ms_by_blocks_per_sm": dict(sorted(by_target.items())),
                "plain_ms": plain_ms,
                "library_ms": lib_ms, "library_device_ms": lib_device_ms,
                "library_kernels": lib_kernels, "flops": flops,
@@ -884,9 +914,9 @@ def time_decode(dec, ops, peaks) -> list:
 def checking_decode_op(ops, errs: dict):
     """A decode attention op for ``serve_decode`` that runs the kernel and,
     on the same inputs, the plain version; it keeps in ``errs`` the
-    largest error over all calls, its worst ratio to the tolerance
-    (DECODE_TOL) and the number of calls, and hands the kernel's result
-    on."""
+    largest error over all calls, its worst ratios to the two bounds
+    (DECODE_TOL, ROW_TOL) and the number of calls, and hands the kernel's
+    result on."""
     def op(q, k, v, valid):
         out = ops.decode_attention(q, k, v, valid)
         ref = ops.decode_attention_plain(q, k, v, valid).float()
@@ -897,6 +927,8 @@ def checking_decode_op(ops, errs: dict):
         errs["worst_ratio"] = max(errs.get("worst_ratio", 0.0),
                                   (diff / (tol + tol * ref.abs())).max()
                                   .item())
+        errs["worst_row_ratio"] = max(errs.get("worst_row_ratio", 0.0),
+                                      decode_row_ratio(out, ref, q.dtype))
         errs["calls"] = errs.get("calls", 0) + 1
         return out
     return op
@@ -911,11 +943,6 @@ def decode_steps(model, logits, cache, steps: int, **kw):
         fed.append(nxt)
         logits, cache = model.serve_decode(nxt, cache, **kw)
     return logits, cache, torch.stack(fed, dim=1)
-
-
-# (model, prompt, decode steps, seed): B = 4 for each
-DECODE_RUNS = [("qwen3-0.6b", 2048, 32, 0), ("qwen1.5-0.5b", 2048, 32, 1),
-               ("starcoder2-3b", 4096, 64, 4), ("xlstm-1.3b", 256, 16, 3)]
 
 
 def first_attention_layer(model):
@@ -964,7 +991,7 @@ def decode_model(dec, ops, model, prompt: int, steps: int, gen,
         torch.cuda.synchronize()
         device_ms, kernels = device_profile(
             lambda: decode_steps(model, logits, cache, prof_steps),
-            expect={DECODE_KERNELS[0]: n_attn * prof_steps})
+            expect={DECODE_BF16[0]: n_attn * prof_steps})
         del cache
     step_ms = wall_s * 1e3 / steps
     dev_step_ms = device_ms / prof_steps
@@ -993,7 +1020,8 @@ def decode_model(dec, ops, model, prompt: int, steps: int, gen,
                              f"{steps} steps")
     if n_attn and errs.get("calls") != n_attn * steps:
         raise AssertionError(f"{cfg.name}: {errs.get('calls')} checked calls")
-    if n_attn and not errs["worst_ratio"] <= 1.0:
+    if n_attn and not (errs["worst_ratio"] <= 1.0
+                       and errs["worst_row_ratio"] <= 1.0):
         raise AssertionError(f"{cfg.name}: a decode kernel call disagrees "
                              f"with the plain version: {errs}")
     if last.shape != (b, cfg.vocab_size) or not finite or not in_place:
@@ -1512,14 +1540,17 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    # each kernel's name (mangled), then its registers and spills
+    ptxas = [ln.split(":", 1)[-1].strip()
+             for ln in _build.build_log.splitlines()
+             if "Compiling entry function" in ln or "registers" in ln
+             or "spill" in ln]
     emit({"phase": "build", "seconds": build_s, "library": lib.name,
           "ptxas": ptxas})
 
     worst = max(check_kernels(fa), check_bshd(fa, ops))
     worst_mlstm = check_mlstm(ms)
-    worst_decode = check_decode(dec)
+    worst_decode, worst_decode_row = check_decode(dec)
     timing = time_kernels(fa, ops, peaks)
     timing_mlstm = time_mlstm(ms, peaks)
     timing_decode = time_decode(dec, ops, peaks)
@@ -1599,7 +1630,8 @@ def main() -> int:
         "launches_decode_path_prefills":
             launches_decode_prefills["mlstm_chunk_step"],
         "max_abs_err": worst_mlstm,
-        "ms": mlstm_row["ms"], "plain_ms": mlstm_row["plain_ms"],
+        "ms": mlstm_row["ms"], "device_ms": mlstm_row["device_ms"],
+        "plain_ms": mlstm_row["plain_ms"],
         "bound_ms": mlstm_row["bound_ms"],
         "bound_by": mlstm_row["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes a chunkwise "
@@ -1611,6 +1643,7 @@ def main() -> int:
         "launches": sum(launches_decode.values()),
         "launches_decode_by_model": launches_decode,
         "launches_serve": 0, "max_abs_err": worst_decode,
+        "max_err_over_row_max": worst_decode_row,
         "ms": decode_row["ms"], "device_ms": decode_row["device_ms"],
         "plain_ms": decode_row["plain_ms"],
         "bound_ms": decode_row["bound_ms"],

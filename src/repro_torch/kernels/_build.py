@@ -10,8 +10,9 @@ plain C interface (no PyTorch headers, so a build takes seconds).  One
          -o <build>/libreprotorch_<hash>.so *.o
 
 The library lands in ``<repo>/build/repro_torch/`` (git-ignored), keyed by
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is built once per checkout.  It is loaded with ``ctypes``;
+a hash of the sources, their headers (``csrc/*.cuh``) and the flags, so
+an edited source or header rebuilds and an unchanged one is built once
+per checkout.  It is loaded with ``ctypes``;
 callers declare ``argtypes`` for every entry point they use.  Nothing is
 built or loaded at import time.
 """
@@ -56,7 +57,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):          # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"

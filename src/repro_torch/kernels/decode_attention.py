@@ -4,8 +4,9 @@
 of the TPU kernel ``repro/kernels/decode_attention.py:
 decode_attention_packed``) on CUDA tensors and counts each launch in
 ``LAUNCHES`` (one per call: the entry point runs the kernel and its
-combine pass).  It takes no CPU tensor and never
-falls back: a failed build or launch raises.
+combine pass).  bf16 runs the tensor-core kernel (P rounded to bf16 for
+PV), fp32 the exact CUDA-core kernel; the dtype alone decides.  It takes
+no CPU tensor and never falls back: a failed build or launch raises.
 
 One query token per sequence: q (B·KVH, G, hd), the G query heads of one
 KV head packed as rows (query head ``h = kvh * G + g``).  The cache is the
@@ -34,15 +35,14 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
 MAX_G = 16                    # query heads per KV head
-TILE = 32                     # the kernel's slots per tile
-BLOCKS_PER_SM = 2             # the split target: blocks per SM
+TILE = 32                     # slots per tile (a warp's in the bf16 kernel)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the CUDA kernel since the last reset (``LAUNCHES = 0``)
 LAUNCHES = 0
 _count_lock = threading.Lock()
 _fn = None
-_sm_counts: dict = {}
+_resident_blocks: dict = {}
 
 
 def _entry():
@@ -84,19 +84,38 @@ def _check(q, k, v, valid, num_heads: int, num_kv_heads: int):
     return k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
 
 
-def _splits(n: int, bkv: int, device: torch.device) -> tuple:
-    """(nsplit, chunk): cut the n valid slots so that about
-    ``BLOCKS_PER_SM`` blocks per SM run, in whole tiles, none past
-    ``valid`` and none empty."""
-    if n == 0:
-        return 1, TILE
+def _resident(hd: int, g: int, dtype: torch.dtype,
+              device: torch.device) -> int:
+    """The blocks of the kernel for (hd, g, dtype) that the card holds at
+    once: the blocks per SM the library reports for it, times the SMs."""
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    per_row = max(1, math.ceil(BLOCKS_PER_SM * _sm_counts[idx] / bkv))
-    chunk = math.ceil(math.ceil(n / per_row) / TILE) * TILE
+    key = (idx, hd, g, dtype)
+    if key not in _resident_blocks:
+        fn = _build.load().repro_decode_attention_blocks_per_sm
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        per_sm = ctypes.c_int()
+        with torch.cuda.device(idx):
+            err = fn(hd, g, _DTYPE_CODES[dtype], ctypes.byref(per_sm))
+        if err != 0 or per_sm.value < 1:
+            raise RuntimeError(f"decode attention kernel (hd {hd}, G {g}, "
+                               f"{dtype}) cannot run: CUDA error {err}, "
+                               f"{per_sm.value} blocks per SM")
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        _resident_blocks[key] = per_sm.value * sms
+    return _resident_blocks[key]
+
+
+def splits(n: int, bkv: int, resident: int) -> tuple:
+    """(nsplit, chunk): cut the n valid slots of each of the bkv rows into
+    chunks of whole tiles, so that bkv * nsplit blocks about fill
+    ``resident`` block slots (none past ``valid``, none empty)."""
+    if n == 0:
+        return 1, TILE
+    tiles = math.ceil(n / TILE)
+    per_row = min(tiles, max(1, resident // bkv))
+    chunk = math.ceil(tiles / per_row) * TILE
     return math.ceil(n / chunk), chunk
 
 
@@ -134,7 +153,7 @@ def decode_attention_packed(q: torch.Tensor, k: torch.Tensor,
                              f"row 16-byte aligned, strides {t.stride()}")
     sc = k4.shape[2]
     n = min(valid, sc)
-    nsplit, chunk = _splits(n, bkv, q.device)
+    nsplit, chunk = splits(n, bkv, _resident(hd, g, q.dtype, q.device))
     out = torch.empty_like(q)
     # the splits' partial (acc, m, l), from torch's allocator on this stream
     ws = torch.empty(bkv * nsplit * g * (hd + 2), dtype=torch.float32,

@@ -3,9 +3,11 @@ version.
 
 ``mlstm_chunk_step`` launches ``csrc/mlstm_chunk.cu`` (the port of the TPU
 kernel ``repro/kernels/mlstm_scan.py:mlstm_chunk_step``) on CUDA tensors
-and counts each launch in ``LAUNCHES`` (one per call: the entry point runs
-the kernel's two passes).  It takes no CPU tensor and never falls back: a
-failed build or launch raises.  As in the model, k arrives scaled by
+and counts each launch in ``LAUNCHES`` (one per call: ``passes`` names
+the kernels it runs, one pass for a chunk of at most ``MAX_SHORT`` steps,
+else a gates pass and a state pass, the latter on the tensor cores for
+bf16 q, k, v with C, k w_j and W each split into two bf16 parts).  It takes no CPU tensor and never falls
+back: a failed build or launch raises.  As in the model, k arrives scaled by
 ``hd ** -0.5``; neither version scales it again.
 
 ``mlstm_chunk_plain`` is the same function in plain PyTorch, all fp32,
@@ -25,6 +27,14 @@ from repro_torch.kernels import _build
 
 MAX_CHUNK = 256               # the kernel's largest L (= MLSTM_CHUNK)
 HEAD_DIMS = (8, 16, 64, 128, 1024)     # the tests' and the path's
+# the one-pass kernel's largest L: it holds MAX_SHORT steps of v and h in
+# registers (the C entry's MAX_SHORT)
+MAX_SHORT = 16
+# the kernels of each route, by their symbols' names
+ONE_PASS = ("mlstm_short_kernel",)
+TWO_PASS_TC = ("mlstm_gates_tc_kernel", "mlstm_state_tc_kernel")
+TWO_PASS = ("mlstm_gates_kernel", "mlstm_state_kernel")
+KERNELS = ONE_PASS + TWO_PASS_TC + TWO_PASS
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_Y = 65535            # B*H rides the grid's y axis
 
@@ -63,6 +73,18 @@ def _check(q, k, v, i_raw, f_raw, c_in, n_in, m_in) -> None:
         raise ValueError("empty chunk")
 
 
+def passes(l: int, hd: int, dtype: torch.dtype) -> tuple:
+    """The kernels one ``mlstm_chunk_step`` call launches, in order, as
+    the C entry chooses them: the one pass for at most ``MAX_SHORT`` steps
+    at hd a multiple of 64, else the gates and state passes (on the tensor
+    cores for bf16 q, k, v at hd a multiple of 64)."""
+    if hd % 64 == 0 and l <= MAX_SHORT:
+        return ONE_PASS
+    if hd % 64 == 0 and dtype == torch.bfloat16:
+        return TWO_PASS_TC
+    return TWO_PASS
+
+
 def mlstm_chunk_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      i_raw: torch.Tensor, f_raw: torch.Tensor,
                      c_in: torch.Tensor, n_in: torch.Tensor,
@@ -94,22 +116,27 @@ def mlstm_chunk_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"B*H = {bh} exceeds the grid limit {MAX_GRID_Y}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v, c_in, n_in)):
+        raise ValueError("q, k, v, c_in and n_in must be 16-byte aligned "
+                         "(the kernel copies them in 16-byte pieces)")
     f32 = dict(dtype=torch.float32, device=q.device)
     h = torch.empty(bh, l, hd, **f32)
     c_out = torch.empty(bh, hd, hd, **f32)
     n_out = torch.empty(bh, hd, **f32)
     m_out = torch.empty(bh, **f32)
-    # scratch between the two passes; the caching allocator reuses it only
-    # after this stream's later work, so no reference need outlive the call
-    w_scratch = torch.empty(bh, l, l, **f32)
-    gate_scratch = torch.empty(bh, 3, l, **f32)
-    win_scratch = torch.empty(bh, **f32)
+    # scratch between the two passes (none for one pass); the caching
+    # allocator reuses it only after this stream's later work, so no
+    # reference need outlive the call
+    scratch = []
+    if passes(l, hd, q.dtype) != ONE_PASS:
+        scratch = [torch.empty(bh, l, l, **f32),
+                   torch.empty(bh, 3, l, **f32), torch.empty(bh, **f32)]
+    scratch_ptrs = [t.data_ptr() for t in scratch] or [None] * 3
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _entry()(*(t.data_ptr() for t in tensors),
                        h.data_ptr(), c_out.data_ptr(), n_out.data_ptr(),
-                       m_out.data_ptr(), w_scratch.data_ptr(),
-                       gate_scratch.data_ptr(), win_scratch.data_ptr(),
+                       m_out.data_ptr(), *scratch_ptrs,
                        bh, l, hd, _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"mLSTM chunk kernel launch failed: CUDA error "

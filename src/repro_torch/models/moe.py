@@ -45,12 +45,15 @@ def _capacity(tokens: int, cfg: ModelConfig) -> int:
 def route(x2d: torch.Tensor, router: torch.Tensor, cfg: ModelConfig
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x2d: (T, d) -> (top-k experts (T, k), gates (T, k) in x's dtype,
-    aux loss scalar).  Slots are ordered by descending probability, as
-    ``lax.top_k`` orders them."""
+    aux loss scalar).  Slots are ordered by descending probability, ties
+    to the lower expert index, as ``lax.top_k`` orders them (``torch.topk``
+    leaves the order of ties undefined, so the top k come from a stable
+    descending sort)."""
     moe = cfg.moe
     logits = x2d.float() @ router
     probs = torch.softmax(logits, dim=-1)
-    gates, experts = torch.topk(probs, moe.top_k, dim=-1, sorted=True)
+    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = gates[..., :moe.top_k], experts[..., :moe.top_k]
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balance loss: E * sum_e f_e * P_e
     e = moe.num_experts

@@ -353,6 +353,42 @@ def test_moe_forward_decode_matches_reference(dtype):
         _cmp_rel(out_t.float().numpy(), out_r, "out")
 
 
+@pytest.mark.parametrize("router", ["zero", "equal_columns"])
+def test_moe_routing_ties_match_reference(router):
+    """Tied probabilities go to the lower expert index, as
+    ``lax.top_k`` orders them: a zero router (every probability 1/4, so
+    experts [0, 1] for every token) and a router whose columns 1 and 3
+    are equal (a tie at the k boundary picks 1 over 3)."""
+    ref_cfg, port_cfg = _configs()
+    p, _ = _moe_params(ref_cfg, 7)
+    if router == "zero":
+        p["router"] = jnp.zeros_like(p["router"])
+    else:
+        p["router"] = p["router"].at[:, 3].set(p["router"][:, 1])
+    pt = _torch(p, torch.float32)
+    x = np.random.default_rng(0).standard_normal(
+        (2, 16, ref_cfg.d_model)).astype(np.float32)
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    e_r, g_r, aux_r = ref_moe.route(xj.reshape(32, -1), p["router"], ref_cfg)
+    e_t, g_t, aux_t = route(xt.reshape(32, -1), pt["router"], port_cfg)
+    e_r = np.asarray(e_r)
+    if router == "zero":
+        assert (e_r == [0, 1]).all()
+    else:
+        assert ((e_r == 1).any(1) ^ (e_r == 3).any(1)).any()  # a boundary tie
+    np.testing.assert_array_equal(e_t.numpy(), e_r)
+    _cmp(g_t.numpy(), g_r, "gates", 1e-6)
+    _cmp(float(aux_t), float(aux_r), "aux", 1e-6)
+    out_r, _ = ref_moe.moe_forward(xj, p, ref_cfg)
+    out_t, _ = moe_forward(xt, pt, port_cfg)
+    _cmp(out_t.numpy(), out_r, "moe_forward", LAYER_TOL)
+    xd = x[:, :1]
+    out_r = ref_moe.moe_forward_decode(jnp.asarray(xd), p, ref_cfg)
+    out_t = moe_forward_decode(torch.from_numpy(np.ascontiguousarray(xd)),
+                               pt, port_cfg)
+    _cmp(out_t.numpy(), out_r, "moe_forward_decode", LAYER_TOL)
+
+
 # --------------------------------------------------------------------------
 # the reduced model
 # --------------------------------------------------------------------------
