@@ -30,10 +30,17 @@ Phases, each printing one line per case:
      inputs), and its device time by kernel (torch.profiler; xlstm-1.3b
      profiled at S=256);
   6. the paper's two chains served at full width through
-     ``PipelineEngine`` under each communication mechanism, after one
-     profiled call of a stage alone (wall time, device idle share):
-     qwen3-0.6b -> qwen1.5-0.5b, then text-to-img, xlstm-1.3b ->
-     qwen1.5-0.5b (``sim/workloads.py``);
+     ``PipelineEngine`` under each communication mechanism on a
+     hand-built allocation, after one profiled call of a stage alone
+     (wall time, device idle share): qwen3-0.6b -> qwen1.5-0.5b, then
+     text-to-img, xlstm-1.3b -> qwen1.5-0.5b (``sim/workloads.py``); and
+     after each chain's ``serve`` lines, Camelot's loop on the same stage
+     servers (``camelot``): each stage profiled live at batch 1/2/4/8,
+     its profile fitted on the H100's spec, the predictor, the
+     allocation solved on one card (feasible, on device 0, quotas on the
+     grid summing to <= 1), simulated at 40 qps and served on the card
+     with the same trace, the simulated and measured p99/mean beside the
+     hand-built allocation's;
   7. decode: the decode-attention kernel against its plain version
      (``check_decode``: G 1/2/4/12, hd 64/128, Sc 1 to 4096, valid from 0
      to Sc and off the tile, bf16 on the tensor-core kernel and fp32 on
@@ -63,7 +70,9 @@ Phases, each printing one line per case:
      (``decode_consistency``, B 1, prompt 512 + 16 steps);
 then a ``{"kernels": [...]}`` line (``launches``: each kernel's launches
 on its path, counted from 0 just before the path and read just after:
-the served traces for the prefill kernels, the timed decode steps for
+the served traces for the prefill kernels, those of the ``serve`` phases
+plus the ``camelot`` phases' profiling and served trace (each also
+beside it), the timed decode steps for
 the decode kernel, the timed jamba prefill for the scan kernel; the other
 paths' counts beside them), the
 ``nvidia-smi`` line again, and as the last line
@@ -106,6 +115,10 @@ LOGIT_REL_TOL = 3e-2
 # nudge moved the logits by 9e-4 on a CPU run of the stack at d 256); a
 # broken mLSTM layer moves them by O(1)
 XLSTM_LOGIT_REL_TOL = 0.1
+# the camelot phase profiles each stage at these batches, each time a
+# warm-up call and then the median of CAMELOT_REPEATS timed calls
+CAMELOT_BATCHES = (1, 2, 4, 8)
+CAMELOT_REPEATS = 3
 # prefix of both attention kernels' symbols: flash_attention_bf16_kernel
 # (tensor cores) and flash_attention_fp32_kernel (exact, CUDA cores)
 ATTN_KERNEL = "flash_attention_"
@@ -1441,19 +1454,20 @@ def stage_breakdown(stage, batch: int) -> dict:
             "top_device_kernels": kernels[:4], "top_host_ops": host}
 
 
-def serve_chain(chain: str, stages, breakdown, kernels) -> dict:
-    """Serve ``stages`` as a chain: 32 queries at 40 qps (Poisson, seed 7),
-    batch 4, timeout 50 ms, stage 0 x 2 instances, under each mechanism.
+def serve_chain(chain: str, stages, alloc, kernels,
+                mechanisms=("host", "device", "auto"),
+                phase: str = "serve") -> tuple:
+    """Serve ``stages`` as a chain on ``alloc``: 32 queries at 40 qps
+    (Poisson, seed 7), batch timeout 50 ms, under each of ``mechanisms``.
     ``kernels``: [(name, module, launches per batch through the chain)].
-    Returns each kernel's launches over the three traces, counted from 0
-    just before the first and read just after the last."""
+    Returns each kernel's launches over the traces, counted from 0 just
+    before the first and read just after the last, and each trace's
+    ``ServeStats.summary()`` by mechanism."""
     from repro_torch.serving import PipelineEngine, make_trace
-    alloc = build_allocation(len(stages), instances=2, batch=4)
-    for st in breakdown:
-        emit(stage_breakdown(st, batch=4))
     for _, mod, _ in kernels:             # the served traces only
         mod.LAUNCHES = 0
-    for mech in ("host", "device", "auto"):
+    summaries = {}
+    for mech in mechanisms:
         trace = make_trace(32, qps=40.0, seq_len=16,
                            vocab=stages[0].cfg.vocab_size, seed=7)
         before = {name: mod.LAUNCHES for name, mod, _ in kernels}
@@ -1465,9 +1479,10 @@ def serve_chain(chain: str, stages, breakdown, kernels) -> dict:
                     for name, mod, _ in kernels}
         stage_ms = [(st.busy_time - b) / max(st.calls - c, 1) * 1e3
                     for st, (b, c) in zip(stages, busy)]
-        s = stats.summary()
-        emit({"phase": "serve", "chain": chain, "mechanism": mech,
-              "queries": 32, "qps": 40.0, "batch": 4, "stage0_instances": 2,
+        s = summaries[mech] = stats.summary()
+        emit({"phase": phase, "chain": chain, "mechanism": mech,
+              "queries": 32, "qps": 40.0, "batch": eng.batch_size,
+              "instances": [a.n_instances for a in alloc.stages],
               "p99_ms": s["p99"] * 1e3, "mean_ms": s["mean"] * 1e3,
               "completed": s["completed"], "failed": s["failed"],
               "batches": stats.batches, "comm_share": s["comm_frac"],
@@ -1482,7 +1497,95 @@ def serve_chain(chain: str, stages, breakdown, kernels) -> dict:
                 raise AssertionError(
                     f"{chain} {mech}: {launches[name]} {name} launches for "
                     f"{stats.batches} batches")
-    return {name: mod.LAUNCHES for name, mod, _ in kernels}
+    return {name: mod.LAUNCHES for name, mod, _ in kernels}, summaries
+
+
+def camelot_chain(chain: str, stages, kernels, hand: dict) -> dict:
+    """Camelot's loop over ``stages`` at full width on the card: profile
+    each stage live, fit its profile on the H100's spec and the predictor,
+    solve the allocation on one card (``solve_max_load(4)``), simulate it
+    at 40 qps, and serve it with the ``serve`` phase's trace under "auto".
+    ``hand``: the serve phase's "auto" summary on the hand-built
+    allocation, printed beside.  Returns each kernel's launches in the
+    phase: the profiling's, counted from 0 before it, plus the served
+    trace's (``serve_chain``'s own count)."""
+    from repro_torch.core import (H100, QUOTA_GRID, CamelotAllocator,
+                                  Pipeline, PipelinePredictor, SAConfig,
+                                  profile_from_engine)
+    from repro_torch.models import param_bytes
+    from repro_torch.sim import PipelineSimulator
+    t_phase = time.perf_counter()
+    for _, mod, _ in kernels:
+        mod.LAUNCHES = 0
+    timings, profiles = [], []
+    for st in stages:
+        t = st.profile_stage_timings(batches=CAMELOT_BATCHES,
+                                     repeats=CAMELOT_REPEATS)
+        timings.append(t)
+        profiles.append(profile_from_engine(
+            st.name, t, weights_bytes=param_bytes(st.cfg),
+            act_bytes_per_query=2e7, device=H100, host_bytes_per_query=2e6))
+    profiled = {name: mod.LAUNCHES for name, mod, _ in kernels}
+    calls = len(CAMELOT_BATCHES) * (CAMELOT_REPEATS + 1)   # warm-up + timed
+    for name, _, per_batch in kernels:
+        if profiled[name] != per_batch * calls:
+            raise AssertionError(f"{chain}: {profiled[name]} {name} "
+                                 f"launches in {calls} profiled calls")
+    pipeline = Pipeline(chain, profiles, qos_target=1.0)
+    pred = PipelinePredictor.from_profiles(profiles, H100)
+    allocator = CamelotAllocator(pipeline, pred, H100, 1,
+                                 sa=SAConfig(iterations=1200, seed=0))
+    t0 = time.perf_counter()
+    res = allocator.solve_max_load(4)
+    solve_s = time.perf_counter() - t0
+    if not res.feasible:
+        raise AssertionError(f"{chain}: the solve found no feasible "
+                             f"allocation on one card (fitted profiles "
+                             f"{profiles})")
+    alloc = res.allocation
+    placed = [dq for per in alloc.placement.per_stage for dq in per]
+    quotas = [a.quota for a in alloc.stages] + [q for _, q in placed]
+    off_grid = [q for q in quotas
+                if min(abs(float(g) - q) for g in QUOTA_GRID) > 1e-9]
+    device0 = sum(q for _, q in placed)
+    if {d for d, _ in placed} != {0} or off_grid or device0 > 1.0 + 1e-9:
+        raise AssertionError(
+            f"{chain}: solve placed on devices "
+            f"{sorted({d for d, _ in placed})}, quotas off the grid "
+            f"{off_grid}, device 0's quotas sum to {device0}")
+    sim = PipelineSimulator(pipeline, alloc, H100, allocator.comm).run(40.0)
+    served, summaries = serve_chain(chain, stages, alloc, kernels,
+                                    mechanisms=("auto",),
+                                    phase="camelot_serve")
+    s = summaries["auto"]
+    emit({"phase": "camelot", "chain": chain,
+          "profiled": {st.name: t for st, t in zip(stages, timings)},
+          "fitted": {p.name: {"overhead_ms": p.overhead * 1e3,
+                              "per_query_ms": p.flops_per_query
+                              / H100.peak_flops * 1e3,
+                              "weights_bytes": p.weights_bytes}
+                     for p in profiles},
+          "solve": {"feasible": res.feasible, "mode": res.mode,
+                    "predicted_peak_qps": res.objective,
+                    "predicted_latency_ms":
+                        alloc.predicted_latency * 1e3,
+                    "wall_s": solve_s,
+                    "stages": [{"instances": a.n_instances,
+                                "quota": a.quota, "batch": a.batch}
+                               for a in alloc.stages],
+                    "devices": sorted({d for d, _ in placed}),
+                    "device0_quota": device0},
+          "simulated": {"qps": 40.0, "p99_ms": sim.p99 * 1e3,
+                        "mean_ms": sim.mean_latency * 1e3,
+                        "completed": sim.completed},
+          "measured": {"qps": 40.0, "p99_ms": s["p99"] * 1e3,
+                       "mean_ms": s["mean"] * 1e3,
+                       "completed": s["completed"], "failed": s["failed"]},
+          "hand_built": {"p99_ms": hand["p99"] * 1e3,
+                         "mean_ms": hand["mean"] * 1e3},
+          "launches_profile": profiled, "launches_serve": served,
+          "seconds": time.perf_counter() - t_phase})
+    return {name: profiled[name] + served[name] for name, _, _ in kernels}
 
 
 def layers_of(stages, kind: str) -> int:
@@ -1491,26 +1594,34 @@ def layers_of(stages, kind: str) -> int:
 
 
 def serve_pipelines(fa, ms) -> tuple:
-    """The two chains of the paper's services, one after the other; at
-    seq_len 16 each mLSTM layer runs one chunk per batch."""
+    """The two chains of the paper's services, one after the other, each
+    served on the hand-built allocation (``serve``) and then through
+    Camelot's loop on the same stage servers (``camelot``); at seq_len 16
+    each mLSTM layer runs one chunk per batch.  Returns each chain's
+    kernel launches in the two phases."""
     from repro_torch.serving import ModelStageServer
-    stages = [ModelStageServer("stage0", "qwen3-0.6b", seq_len=16, seed=0),
-              ModelStageServer("stage1", "qwen1.5-0.5b", seq_len=16, seed=1)]
-    first = serve_chain(
-        "qwen3-0.6b->qwen1.5-0.5b", stages, stages,
-        [("flash_attention_bhsd", fa, layers_of(stages, "attn")),
-         ("mlstm_chunk_step", ms, 0)])
-    del stages
-    torch.cuda.empty_cache()
-    stages = [ModelStageServer("semantic-understanding", "xlstm-1.3b",
-                               seq_len=16, seed=3),
-              ModelStageServer("image-generation", "qwen1.5-0.5b",
-                               seq_len=16, seed=1)]
-    second = serve_chain(
-        "text-to-img", stages, stages[:1],
-        [("flash_attention_bhsd", fa, layers_of(stages, "attn")),
-         ("mlstm_chunk_step", ms, layers_of(stages, "mlstm"))])
-    return first, second
+    chains = (
+        ("qwen3-0.6b->qwen1.5-0.5b", (("stage0", "qwen3-0.6b", 0),
+                                      ("stage1", "qwen1.5-0.5b", 1)),
+         (0, 1)),
+        ("text-to-img", (("semantic-understanding", "xlstm-1.3b", 3),
+                         ("image-generation", "qwen1.5-0.5b", 1)), (0,)))
+    out = []
+    for chain, specs, breakdown in chains:
+        stages = [ModelStageServer(name, arch, seq_len=16, seed=seed)
+                  for name, arch, seed in specs]
+        kernels = [("flash_attention_bhsd", fa, layers_of(stages, "attn")),
+                   ("mlstm_chunk_step", ms, layers_of(stages, "mlstm"))]
+        for i in breakdown:
+            emit(stage_breakdown(stages[i], batch=4))
+        served, summaries = serve_chain(
+            chain, stages, build_allocation(len(stages), instances=2,
+                                            batch=4), kernels)
+        camelot = camelot_chain(chain, stages, kernels, summaries["auto"])
+        out.append((served, camelot))
+        del stages
+        gc_collect()
+    return out
 
 
 def main() -> int:
@@ -1560,7 +1671,8 @@ def main() -> int:
     # path, whose counts are the kernels line's ``launches``)
     launches_prefill = prefill_full_width(fa, ops, Transformer, get_config)
     launches_prefill_mlstm = prefill_xlstm(ms, ops, Transformer, get_config)
-    first, second = serve_pipelines(fa, ms)
+    (first, camelot_first), (second, camelot_second) = \
+        serve_pipelines(fa, ms)
     # the decode path: the decode kernel's count from 0 before each
     # model's timed steps; the prefills before them count the others
     fa.LAUNCHES = ms.LAUNCHES = 0
@@ -1607,9 +1719,14 @@ def main() -> int:
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:89",
-        "launches": attn_serve, "launches_serve": attn_serve,
+        "launches": attn_serve + camelot_first["flash_attention_bhsd"]
+        + camelot_second["flash_attention_bhsd"],
+        "launches_serve": attn_serve,
         "launches_serve_chain": first["flash_attention_bhsd"],
         "launches_serve_text_to_img": second["flash_attention_bhsd"],
+        "launches_camelot_chain": camelot_first["flash_attention_bhsd"],
+        "launches_camelot_text_to_img":
+            camelot_second["flash_attention_bhsd"],
         "launches_prefill": launches_prefill,
         "launches_jamba_prefill": launches_jamba["flash_attention_bhsd"],
         "launches_decode_path_prefills":
@@ -1624,8 +1741,12 @@ def main() -> int:
         "name": "mlstm_chunk_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_scan.py:78",
-        "launches": second["mlstm_chunk_step"],
+        "launches": second["mlstm_chunk_step"]
+        + camelot_second["mlstm_chunk_step"],
+        "launches_serve": second["mlstm_chunk_step"],
         "launches_serve_chain": first["mlstm_chunk_step"],
+        "launches_camelot_chain": camelot_first["mlstm_chunk_step"],
+        "launches_camelot_text_to_img": camelot_second["mlstm_chunk_step"],
         "launches_prefill": launches_prefill_mlstm,
         "launches_decode_path_prefills":
             launches_decode_prefills["mlstm_chunk_step"],

@@ -6,9 +6,12 @@ from repro_torch.configs.base import (
     SLSTM,
     ModelConfig,
     MoEConfig,
+    active_param_count,
     get_config,
+    param_count,
     register,
 )
 
 __all__ = ["ARCH_IDS", "ATTN", "MAMBA", "MLSTM", "ModelConfig", "MoEConfig",
-           "SLSTM", "get_config", "register"]
+           "SLSTM", "active_param_count", "get_config", "param_count",
+           "register"]

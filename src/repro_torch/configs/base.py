@@ -1,11 +1,14 @@
 """Config system of the PyTorch port: architecture definitions.
 
-Each ported architecture gets one module in this package that builds a
-``ModelConfig`` via :func:`register`.  ``get_config(name)`` returns the full
-published configuration; ``get_config(name, reduced=True)`` returns the
-small variant of the same family (one superblock, d_model <= 256) that the
-CPU tests use.  Only the architectures whose layers the port implements are
-known here; any other name raises ``KeyError``.
+Each architecture the port knows gets one module in this package that
+builds a ``ModelConfig`` via :func:`register`.  ``get_config(name)``
+returns the full published configuration; ``get_config(name, reduced=True)``
+returns the small variant of the same family (one superblock, d_model <=
+256) that the CPU tests use.  Any other name raises ``KeyError``.  A known
+configuration whose blocks the port's models do not implement (whisper-
+medium's encoder-decoder) is data for the predictor and the workloads;
+building its model raises ``NotImplementedError``
+(``models/transformer.py:_check_ported``).
 """
 from __future__ import annotations
 
@@ -123,12 +126,14 @@ class ModelConfig:
 _REGISTRY: dict[str, ModelConfig] = {}
 _REDUCERS: dict[str, Callable[[ModelConfig], ModelConfig]] = {}
 
-# the architectures whose layers the port implements
+# the configurations the port knows (every one but whisper-medium also
+# has its model ported)
 _MODULES = {
     "jamba-v0.1-52b": "jamba_v0p1_52b",
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "qwen3-0.6b": "qwen3_0p6b",
     "starcoder2-3b": "starcoder2_3b",
+    "whisper-medium": "whisper_medium",
     "xlstm-1.3b": "xlstm_1p3b",
 }
 ARCH_IDS = tuple(_MODULES)
@@ -178,7 +183,7 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
         if name not in _MODULES:
             raise KeyError(
                 f"architecture {name!r} is not ported to repro_torch yet; "
-                f"ported: {sorted(_MODULES)}")
+                f"known: {sorted(_MODULES)}")
         importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     cfg = _REGISTRY[name]
     if reduced:
@@ -186,3 +191,72 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
         red.validate()
         return red
     return cfg
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Analytic parameter count (the workloads size a stage's per-query
+    FLOPs and weights from it)."""
+    d, v = cfg.d_model, cfg.vocab_size
+    total = v * d                      # embedding
+    if not cfg.tie_embeddings:
+        total += v * d                 # lm head
+    hd = cfg.resolved_head_dim
+    for kind, mlp in zip(cfg.block_pattern, cfg.mlp_pattern):
+        p = 0
+        if kind in (ATTN, CROSS):
+            q = cfg.num_heads * hd
+            kvd = cfg.num_kv_heads * hd
+            p += d * q + 2 * d * kvd + q * d          # qkv + out
+            if kind == CROSS:
+                p += d * q + 2 * d * kvd + q * d      # cross-attn
+            p += 2 * d                                 # norms
+        elif kind == MAMBA:
+            inner = cfg.ssm_expand * d
+            p += d * 2 * inner                        # in_proj (x, z)
+            p += inner * cfg.ssm_conv_dim             # conv
+            p += inner * (cfg.ssm_state_dim * 2 + 1)  # B,C,dt proj (approx)
+            p += inner * cfg.ssm_state_dim            # A
+            p += inner * d                            # out proj
+            p += d
+        elif kind == MLSTM:
+            inner = cfg.xlstm_expand * d
+            p += d * 2 * inner                        # up (x, z)
+            p += inner * cfg.xlstm_conv_dim
+            p += 3 * inner * inner // cfg.xlstm_num_heads  # q,k,v head-block
+            p += 3 * inner                            # gates
+            p += inner * d
+            p += d
+        elif kind == SLSTM:
+            nh = cfg.xlstm_num_heads
+            p += 4 * d * d + 4 * d * (d // nh)        # input + recurrent (block-diag)
+            p += 8 * d                                # gates/norm
+            p += int(2 * d * (4 / 3) * d)             # ffn up/down (GEGLU 4/3)
+            p += d
+        if mlp == "dense":
+            p += 3 * d * cfg.d_ff                     # swiglu
+            p += d
+        elif mlp == "moe":
+            p += 3 * d * cfg.moe.d_expert * cfg.moe.num_experts
+            p += d * cfg.moe.num_experts              # router
+            p += d
+        total += p * cfg.num_superblocks
+    total += d                                        # final norm
+    if cfg.encoder_decoder:
+        # encoder layers: self-attn + dense mlp
+        q = cfg.num_heads * hd
+        kvd = cfg.num_kv_heads * hd
+        enc = (d * q + 2 * d * kvd + q * d + 2 * d + 3 * d * cfg.d_ff + d)
+        total += enc * cfg.num_encoder_layers
+    return int(total)
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: only top_k experts)."""
+    if cfg.moe is None:
+        return param_count(cfg)
+    full = param_count(cfg)
+    d = cfg.d_model
+    n_moe_layers = sum(1 for m in cfg.mlp_pattern if m == "moe") * cfg.num_superblocks
+    all_experts = 3 * d * cfg.moe.d_expert * cfg.moe.num_experts * n_moe_layers
+    active = 3 * d * cfg.moe.d_expert * cfg.moe.top_k * n_moe_layers
+    return int(full - all_experts + active)

@@ -6,8 +6,8 @@ from its imports.  One scheduling state machine for two execution worlds:
   * the **live serving engine** (``repro_torch.serving.engine``) drives it
     with the wall clock and a thread pool of real model calls on the card,
     and
-  * a **discrete-event simulator** (the reference's ``sim.simulator``; not
-    yet ported) drives it with virtual time and charges durations from
+  * the **discrete-event simulator** (``repro_torch.sim.simulator``)
+    drives it with virtual time and charges durations from
     MicroserviceProfile physics.
 
 The core owns every *policy* decision so both worlds are charged

@@ -67,6 +67,17 @@ def test_port_imports_and_serves_with_jax_and_repro_blocked():
         "                       cache_len=10)\n"
         "lg, c = m.serve_decode(torch.zeros(1, dtype=torch.int32), c)\n"
         "assert lg.shape == (1, 512) and c.pos == 9\n"
+        "import repro_torch.core.allocator, repro_torch.core.hierarchy\n"
+        "import repro_torch.sim, repro_torch.launch.serve\n"
+        "from repro_torch.core import (RTX_2080TI, CamelotAllocator,\n"
+        "                              PipelinePredictor, SAConfig)\n"
+        "from repro_torch.sim import camelot_suite\n"
+        "p = camelot_suite()['img-to-img']\n"
+        "pred = PipelinePredictor.from_graph(p, RTX_2080TI, batches=(1, 4))\n"
+        "res = CamelotAllocator(p, pred, RTX_2080TI, 1,\n"
+        "                       sa=SAConfig(iterations=60, seed=0)\n"
+        "                       ).solve_max_load(4)\n"
+        "assert res.feasible and res.objective > 0\n"
         "assert sys.modules['jax'] is None and sys.modules['repro'] is None\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

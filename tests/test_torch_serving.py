@@ -1,5 +1,8 @@
 """The port's live serving engine on the CPU: the contracts of
-tests/test_serving.py, and parity with the reference's engine."""
+tests/test_serving.py, and parity with the reference's engine — on the
+chain, on a diamond DAG, and on an allocation that both packages' solvers
+chose from the same stage timings (the slice's profile -> fit -> solve ->
+serve path, and ``repro_torch.launch.serve`` end to end)."""
 import dataclasses
 
 import jax
@@ -8,14 +11,20 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core as ref_core
 from repro.core.types import Allocation as RefAllocation
 from repro.core.types import Placement as RefPlacement
+from repro.core.types import ServiceEdge as RefServiceEdge
+from repro.core.types import ServiceGraph as RefServiceGraph
 from repro.core.types import StageAlloc as RefStageAlloc
 from repro.serving import ModelStageServer as RefStageServer
 from repro.serving import PipelineEngine as RefPipelineEngine
 from repro.serving import make_trace as ref_make_trace
+import repro_torch.core as port_core
 from repro_torch.core import HOST_STAGED, EdgeChannel
-from repro_torch.core.types import Allocation, Placement, StageAlloc
+from repro_torch.core.types import (H100, Allocation, Placement,
+                                    ServiceEdge, ServiceGraph, StageAlloc)
+from repro_torch.launch.serve import serve as launch_serve
 from repro_torch.serving import (ModelStageServer, MultiTenantEngine,
                                  PipelineEngine, make_trace)
 
@@ -178,3 +187,155 @@ def test_stage_server_pickles_to_an_equal_replica(stages):
     assert torch.equal(replica.process(toks), stages[0].process(toks))
     assert dataclasses.asdict(replica.cfg) == dataclasses.asdict(
         stages[0].cfg)
+
+
+# ---- the slice end to end: profile -> fit -> solve -> serve ----------------
+
+class _Recording:
+    """Wraps a stage server of either package and records every call as
+    (input rows, output ids) in numpy."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.name, self.seq_len, self.cfg = inner.name, inner.seq_len, \
+            inner.cfg
+        self.device = getattr(inner, "device", None)
+        self.calls = []
+
+    def warmup(self, batch):
+        self.inner.warmup(batch)
+
+    def process(self, tokens):
+        out = self.inner.process(tokens)
+        to_np = (lambda x: x.numpy()) if isinstance(out, torch.Tensor) \
+            else np.asarray
+        self.calls.append((to_np(tokens).copy(), to_np(out).copy()))
+        return out
+
+    def row_map(self) -> dict:
+        """Input row (as bytes) -> output id, over every call; a row seen
+        twice must have given the same id."""
+        m = {}
+        for toks, ids in self.calls:
+            for row, i in zip(toks, ids):
+                assert m.setdefault(row.tobytes(), int(i)) == int(i)
+        return m
+
+
+# measured (batch, seconds) of one stage call, as profile_stage_timings
+# returns them: the same numbers go to both packages
+TIMINGS = ([(1, 0.0101), (2, 0.0123), (4, 0.0170), (8, 0.0262)],
+           [(1, 0.0080), (2, 0.0091), (4, 0.0118), (8, 0.0177)])
+
+
+def _solve(core, device):
+    profiles = [core.profile_from_engine(
+        f"stage{i}", t, weights_bytes=1e9, act_bytes_per_query=2e7,
+        device=device, host_bytes_per_query=2e6)
+        for i, t in enumerate(TIMINGS)]
+    pipeline = core.Pipeline("serve", profiles, qos_target=1.0)
+    pred = core.PipelinePredictor.from_profiles(profiles, device)
+    return core.CamelotAllocator(pipeline, pred, device, 1,
+                                 sa=core.SAConfig(iterations=300, seed=0)
+                                 ).solve_max_load(4)
+
+
+def _per_query(trace, stages):
+    """Each query's final output id, followed through the recorded calls
+    of a chain (a stage's input row is its predecessor's id, tiled)."""
+    maps = [st.row_map() for st in stages]
+    out = []
+    for q in trace:
+        row = q.tokens
+        for st, m in zip(stages, maps):
+            i = m[np.ascontiguousarray(row, np.int32).tobytes()]
+            row = np.full(st.seq_len, i, np.int32)
+        out.append(i)
+    return out
+
+
+def test_solved_allocation_serves_like_reference():
+    """Both packages solve the same timings to the same allocation; served
+    on both engines with shared fp32 parameters, every query gives the
+    same output ids."""
+    ref_res = _solve(ref_core, ref_core.DeviceSpec(
+        **dataclasses.asdict(H100)))
+    res = _solve(port_core, H100)
+    assert res.feasible and res.objective == ref_res.objective
+    shape = [(s.n_instances, s.quota, s.batch) for s in res.allocation.stages]
+    assert shape == [(s.n_instances, s.quota, s.batch)
+                     for s in ref_res.allocation.stages]
+    assert res.allocation.placement.per_stage == \
+        ref_res.allocation.placement.per_stage
+    assert {d for placed in res.allocation.placement.per_stage
+            for d, _ in placed} == {0}
+
+    (r0, p0), (r1, p1) = _fp32_pair(ARCHS[0]), _fp32_pair(ARCHS[1], seed=1)
+    ref_stages = [_Recording(r0), _Recording(r1)]
+    stages = [_Recording(p0), _Recording(p1)]
+    kw = dict(comm_mechanism="auto", qos_target=2.0, batch_timeout=0.5)
+    args = dict(n=12, qps=1e6, seq_len=16, vocab=r0.cfg.vocab_size, seed=3)
+    ref_trace, trace = ref_make_trace(**args), make_trace(**args)
+    s_ref = RefPipelineEngine(ref_stages, allocation=ref_res.allocation,
+                              **kw).run_trace(ref_trace).summary()
+    s = PipelineEngine(stages, allocation=res.allocation,
+                       **kw).run_trace(trace).summary()
+    assert s["completed"] == s_ref["completed"] == 12
+    assert s["failed"] == s_ref["failed"] == 0
+    assert _per_query(trace, stages) == _per_query(ref_trace, ref_stages)
+
+
+def _diamond_graph(mod_graph, mod_edge):
+    return mod_graph("diamond", [None] * 4,
+                     [mod_edge(0, 1), mod_edge(0, 2), mod_edge(1, 3),
+                      mod_edge(2, 3)], qos_target=5.0)
+
+
+def _diamond_alloc(mod_alloc, mod_stage, mod_place):
+    return mod_alloc(stages=[mod_stage(1, 0.25, 4) for _ in range(4)],
+                     placement=mod_place(
+                         per_stage=[[(0, 0.25)] for _ in range(4)]))
+
+
+def test_diamond_matches_reference_call_for_call():
+    """A diamond of four reduced stages (fan-out from the first, fan-in at
+    the last) with shared fp32 parameters: every stage sees the same
+    inputs and gives the same outputs in both engines."""
+    pairs = [_fp32_pair(a, seed=i)
+             for i, a in enumerate(ARCHS + ARCHS)]
+    ref_stages = [_Recording(r) for r, _ in pairs]
+    stages = [_Recording(p) for _, p in pairs]
+    kw = dict(comm_mechanism="auto", qos_target=5.0, batch_timeout=0.5)
+    args = dict(n=8, qps=1e6, seq_len=16, vocab=pairs[0][0].cfg.vocab_size,
+                seed=4)
+    s_ref = RefPipelineEngine(
+        ref_stages, graph=_diamond_graph(RefServiceGraph, RefServiceEdge),
+        allocation=_diamond_alloc(RefAllocation, RefStageAlloc,
+                                  RefPlacement), **kw).run_trace(
+        ref_make_trace(**args)).summary()
+    s = PipelineEngine(
+        stages, graph=_diamond_graph(ServiceGraph, ServiceEdge),
+        allocation=_diamond_alloc(Allocation, StageAlloc, Placement),
+        **kw).run_trace(make_trace(**args)).summary()
+    assert s["completed"] == s_ref["completed"] == 8
+    for st, ref_st in zip(stages, ref_stages):
+        assert len(st.calls) == len(ref_st.calls) == 2
+        key = lambda c: c[0].tobytes()           # noqa: E731
+        for (x, y), (rx, ry) in zip(sorted(st.calls, key=key),
+                                    sorted(ref_st.calls, key=key)):
+            np.testing.assert_array_equal(x, rx)
+            np.testing.assert_array_equal(y, ry)
+
+
+def test_launch_serve_profiles_solves_and_serves(capsys):
+    """The launcher's flow on reduced CPU stages: live profiles, a
+    feasible solve, every query served.  The QoS target is the CPU's: a
+    reduced stage call on a busy CPU can take longer than the card's
+    whole 1.0 s budget, which Constraint-5 would then refuse."""
+    out = launch_serve(list(ARCHS), queries=8, qps=50.0, qos=30.0,
+                       reduced=True, device="cpu")
+    res, served = out["solve"], out["served"]
+    assert res.feasible and res.objective > 0
+    assert served["completed"] == 8 and served["failed"] == 0
+    text = capsys.readouterr().out
+    assert "camelot allocation" in text and "served 8 queries" in text
