@@ -40,7 +40,17 @@ Phases, each printing one line per case:
      allocation solved on one card (feasible, on device 0, quotas on the
      grid summing to <= 1), simulated at 40 qps and served on the card
      with the same trace, the simulated and measured p99/mean beside the
-     hand-built allocation's;
+     hand-built allocation's; then the facade on both chains' servers:
+     ``session`` (``CamelotSession`` over the qwen chain's fitted
+     profiles: profile, max-peak solve, simulate at 40 qps, serve the
+     trace with the engine attached to the session's runtime, which
+     re-solves at the observed 40 qps halfway through and swaps the
+     allocation in once), ``session_faults`` (the same chain with
+     ``ServeSpec(max_retries=1)`` and a last stage whose first call
+     raises: one retry, all served) and ``multi_session``
+     (``MultiServiceSession`` over both chains on one card, a joint
+     solve, 32 queries at 20 qps for each tenant), each with 32/32
+     completed and exact kernel launches;
   7. decode: the decode-attention kernel against its plain version
      (``check_decode``: G 1/2/4/12, hd 64/128, Sc 1 to 4096, valid from 0
      to Sc and off the tile, bf16 on the tensor-core kernel and fp32 on
@@ -71,8 +81,8 @@ Phases, each printing one line per case:
 then a ``{"kernels": [...]}`` line (``launches``: each kernel's launches
 on its path, counted from 0 just before the path and read just after:
 the served traces for the prefill kernels, those of the ``serve`` phases
-plus the ``camelot`` phases' profiling and served trace (each also
-beside it), the timed decode steps for
+plus the ``camelot`` phases' profiling and served trace and the facade
+phases' traces (each also beside it), the timed decode steps for
 the decode kernel, the timed jamba prefill for the scan kernel; the other
 paths' counts beside them), the
 ``nvidia-smi`` line again, and as the last line
@@ -87,6 +97,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1464,19 +1475,17 @@ def serve_chain(chain: str, stages, alloc, kernels,
     before the first and read just after the last, and each trace's
     ``ServeStats.summary()`` by mechanism."""
     from repro_torch.serving import PipelineEngine, make_trace
-    for _, mod, _ in kernels:             # the served traces only
-        mod.LAUNCHES = 0
+    counts = zero_counts(kernels)         # the served traces only
     summaries = {}
     for mech in mechanisms:
         trace = make_trace(32, qps=40.0, seq_len=16,
                            vocab=stages[0].cfg.vocab_size, seed=7)
-        before = {name: mod.LAUNCHES for name, mod, _ in kernels}
+        before = counts()
         busy = [(st.busy_time, st.calls) for st in stages]
         with PipelineEngine(stages, comm_mechanism=mech, qos_target=1.0,
                             batch_timeout=0.05, allocation=alloc) as eng:
             stats = eng.run_trace(trace)
-        launches = {name: mod.LAUNCHES - before[name]
-                    for name, mod, _ in kernels}
+        launches = {name: n - before[name] for name, n in counts().items()}
         stage_ms = [(st.busy_time - b) / max(st.calls - c, 1) * 1e3
                     for st, (b, c) in zip(stages, busy)]
         s = summaries[mech] = stats.summary()
@@ -1497,26 +1506,25 @@ def serve_chain(chain: str, stages, alloc, kernels,
                 raise AssertionError(
                     f"{chain} {mech}: {launches[name]} {name} launches for "
                     f"{stats.batches} batches")
-    return {name: mod.LAUNCHES for name, mod, _ in kernels}, summaries
+    return counts(), summaries
 
 
-def camelot_chain(chain: str, stages, kernels, hand: dict) -> dict:
+def camelot_chain(chain: str, stages, kernels, hand: dict) -> tuple:
     """Camelot's loop over ``stages`` at full width on the card: profile
     each stage live, fit its profile on the H100's spec and the predictor,
     solve the allocation on one card (``solve_max_load(4)``), simulate it
     at 40 qps, and serve it with the ``serve`` phase's trace under "auto".
     ``hand``: the serve phase's "auto" summary on the hand-built
     allocation, printed beside.  Returns each kernel's launches in the
-    phase: the profiling's, counted from 0 before it, plus the served
-    trace's (``serve_chain``'s own count)."""
-    from repro_torch.core import (H100, QUOTA_GRID, CamelotAllocator,
-                                  Pipeline, PipelinePredictor, SAConfig,
+    phase (the profiling's, counted from 0 before it, plus the served
+    trace's: ``serve_chain``'s own count) and the fitted profiles."""
+    from repro_torch.core import (H100, CamelotAllocator, Pipeline,
+                                  PipelinePredictor, SAConfig,
                                   profile_from_engine)
     from repro_torch.models import param_bytes
     from repro_torch.sim import PipelineSimulator
     t_phase = time.perf_counter()
-    for _, mod, _ in kernels:
-        mod.LAUNCHES = 0
+    counts = zero_counts(kernels)
     timings, profiles = [], []
     for st in stages:
         t = st.profile_stage_timings(batches=CAMELOT_BATCHES,
@@ -1525,7 +1533,7 @@ def camelot_chain(chain: str, stages, kernels, hand: dict) -> dict:
         profiles.append(profile_from_engine(
             st.name, t, weights_bytes=param_bytes(st.cfg),
             act_bytes_per_query=2e7, device=H100, host_bytes_per_query=2e6))
-    profiled = {name: mod.LAUNCHES for name, mod, _ in kernels}
+    profiled = counts()
     calls = len(CAMELOT_BATCHES) * (CAMELOT_REPEATS + 1)   # warm-up + timed
     for name, _, per_batch in kernels:
         if profiled[name] != per_batch * calls:
@@ -1543,16 +1551,7 @@ def camelot_chain(chain: str, stages, kernels, hand: dict) -> dict:
                              f"allocation on one card (fitted profiles "
                              f"{profiles})")
     alloc = res.allocation
-    placed = [dq for per in alloc.placement.per_stage for dq in per]
-    quotas = [a.quota for a in alloc.stages] + [q for _, q in placed]
-    off_grid = [q for q in quotas
-                if min(abs(float(g) - q) for g in QUOTA_GRID) > 1e-9]
-    device0 = sum(q for _, q in placed)
-    if {d for d, _ in placed} != {0} or off_grid or device0 > 1.0 + 1e-9:
-        raise AssertionError(
-            f"{chain}: solve placed on devices "
-            f"{sorted({d for d, _ in placed})}, quotas off the grid "
-            f"{off_grid}, device 0's quotas sum to {device0}")
+    device0 = on_one_card(chain, alloc)
     sim = PipelineSimulator(pipeline, alloc, H100, allocator.comm).run(40.0)
     served, summaries = serve_chain(chain, stages, alloc, kernels,
                                     mechanisms=("auto",),
@@ -1570,11 +1569,8 @@ def camelot_chain(chain: str, stages, kernels, hand: dict) -> dict:
                     "predicted_latency_ms":
                         alloc.predicted_latency * 1e3,
                     "wall_s": solve_s,
-                    "stages": [{"instances": a.n_instances,
-                                "quota": a.quota, "batch": a.batch}
-                               for a in alloc.stages],
-                    "devices": sorted({d for d, _ in placed}),
-                    "device0_quota": device0},
+                    "stages": alloc_row(alloc),
+                    "devices": [0], "device0_quota": device0},
           "simulated": {"qps": 40.0, "p99_ms": sim.p99 * 1e3,
                         "mean_ms": sim.mean_latency * 1e3,
                         "completed": sim.completed},
@@ -1585,7 +1581,26 @@ def camelot_chain(chain: str, stages, kernels, hand: dict) -> dict:
                          "mean_ms": hand["mean"] * 1e3},
           "launches_profile": profiled, "launches_serve": served,
           "seconds": time.perf_counter() - t_phase})
-    return {name: profiled[name] + served[name] for name, _, _ in kernels}
+    return ({name: profiled[name] + served[name] for name, _, _ in kernels},
+            profiles)
+
+
+def on_one_card(name: str, alloc) -> float:
+    """Raise unless ``alloc`` is placed on device 0 alone with every quota
+    on the ``QUOTA_GRID`` and device 0's quotas summing to <= 1; returns
+    that sum."""
+    from repro_torch.core import QUOTA_GRID
+    placed = [dq for per in alloc.placement.per_stage for dq in per]
+    quotas = [a.quota for a in alloc.stages] + [q for _, q in placed]
+    off_grid = [q for q in quotas
+                if min(abs(float(g) - q) for g in QUOTA_GRID) > 1e-9]
+    device0 = sum(q for _, q in placed)
+    if {d for d, _ in placed} != {0} or off_grid or device0 > 1.0 + 1e-9:
+        raise AssertionError(
+            f"{name}: allocation placed on devices "
+            f"{sorted({d for d, _ in placed})}, quotas off the grid "
+            f"{off_grid}, device 0's quotas sum to {device0}")
+    return device0
 
 
 def layers_of(stages, kind: str) -> int:
@@ -1593,12 +1608,278 @@ def layers_of(stages, kind: str) -> int:
                for st in stages)
 
 
+# ---------------------------------------------------------------------------
+# the facade: CamelotSession / MultiServiceSession on the live stage servers
+# ---------------------------------------------------------------------------
+
+FACADE_SA_ITERATIONS = 1200
+
+
+def served_spec(chain: str, stages, profiles):
+    """The chain as a ``ServiceSpec`` of its live-fitted profiles, each
+    node naming its stage server's model (``arch``)."""
+    from repro_torch.camelot import ServiceSpec
+    return ServiceSpec.chain(chain, [dataclasses.replace(p, arch=st.cfg.name)
+                                     for st, p in zip(stages, profiles)],
+                             qos_target=1.0)
+
+
+def alloc_row(alloc) -> list:
+    return [{"instances": a.n_instances, "quota": a.quota, "batch": a.batch}
+            for a in alloc.stages]
+
+
+def zero_counts(kernels) -> dict:
+    """Set every kernel's count to 0; returns a reader of the counts."""
+    for _, mod, _ in kernels:
+        mod.LAUNCHES = 0
+    return lambda: {name: mod.LAUNCHES for name, mod, _ in kernels}
+
+
+def check_launches(phase: str, launches: dict, expected: dict) -> None:
+    if launches != expected:
+        raise AssertionError(f"{phase}: launches {launches}, expected "
+                             f"{expected}")
+
+
+def check_served(phase: str, s: dict, n: int, retries: int = 0) -> None:
+    if (s["completed"], s["failed"], s["retries"]) != (n, 0, retries):
+        raise AssertionError(f"{phase}: completed {s['completed']}, failed "
+                             f"{s['failed']}, retries {s['retries']} (want "
+                             f"{n}, 0, {retries})")
+
+
+class FirstCallFails:
+    """A stage server whose first ``process`` call raises before any work
+    (so it launches nothing); every later call goes to the server."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.name, self.seq_len, self.cfg, self.device = \
+            inner.name, inner.seq_len, inner.cfg, inner.device
+        self.raised = 0
+
+    def warmup(self, batch: int):
+        self.inner.warmup(batch)
+
+    def process(self, tokens):
+        if not self.raised:
+            self.raised += 1
+            raise RuntimeError("injected fault: the first call of "
+                               f"{self.name}")
+        return self.inner.process(tokens)
+
+
+def session_phase(chain: str, stages, profiles, kernels) -> dict:
+    """``CamelotSession`` over the chain's live-fitted profiles on one
+    H100: ``profile`` → ``solve("max-peak")`` → ``simulate(40)`` →
+    ``serve(stages=...)``, the engine attached to the session's runtime
+    (resumed from the solve: no second cold solve).  The ``serve`` phase's
+    trace (32 queries, 40 qps, seed 7) is replayed; once half its arrivals
+    are in, a second thread observes 40 qps (EWMA alpha 1: the estimate is
+    the observation) and reallocates, a min-resource re-solve that the
+    engine swaps in between batches.  Returns the trace's launches."""
+    from repro_torch.camelot import (CamelotSession, ClusterSpec, QoSSpec,
+                                     SAConfig)
+    from repro_torch.core import H100, RuntimeConfig
+    t_phase = time.perf_counter()
+    sa = SAConfig(iterations=FACADE_SA_ITERATIONS, seed=0)
+    sess = CamelotSession(served_spec(chain, stages, profiles),
+                          ClusterSpec(device=H100, devices=1),
+                          QoSSpec(latency_target=1.0), batch=4)
+    sess.profile()
+    t0 = time.perf_counter()
+    res = sess.solve("max-peak", sa=sa)
+    solve_s = time.perf_counter() - t0
+    if not res.feasible:
+        raise AssertionError(f"session: no feasible solve ({profiles})")
+    on_one_card("session solve", res.allocation)
+    sim = sess.simulate(40.0)
+    eng = sess.serve(stages=stages)
+    runtime = sess.runtime(rt=RuntimeConfig(ewma_alpha=1.0), sa=sa,
+                           resume=True)
+    runtime.attach_engine(eng)
+    trace = sess.make_trace(32, 40.0, seed=7)
+    # the engine's clock starts when its last stage is warm: mark it
+    started = threading.Event()
+    last = stages[-1]
+
+    def warmup_then_mark(batch: int) -> None:
+        type(last).warmup(last, batch)
+        started.set()
+
+    swap = {}
+
+    def reallocate() -> None:
+        if not started.wait(timeout=120.0):
+            return
+        time.sleep(trace[15].arrival)
+        t0 = time.perf_counter()
+        sess.observe(40.0)
+        swap["alloc"] = sess.reallocate(now=trace[15].arrival)
+        swap["seconds"] = time.perf_counter() - t0
+
+    counts = zero_counts(kernels)
+    last.warmup = warmup_then_mark
+    th = threading.Thread(target=reallocate)
+    th.start()
+    try:
+        stats = eng.run_trace(trace)
+    finally:
+        del last.warmup
+        started.set()
+        th.join(timeout=120.0)
+    launches = counts()
+    s = stats.summary()
+    ev = runtime.history[-1] if runtime.history else None
+    emit({"phase": "session", "chain": chain, "queries": 32, "qps": 40.0,
+          "solve": {"predicted_peak_qps": res.objective, "wall_s": solve_s,
+                    "stages": alloc_row(res.allocation)},
+          "resolve": None if ev is None else {
+              "provisioned_for_qps": ev.provisioned_for,
+              "feasible": ev.feasible, "objective": ev.objective,
+              "warm_started": ev.warm_started,
+              "reallocate_s": swap.get("seconds"),
+              "stages": alloc_row(runtime.current)},
+          "swaps": eng.swaps,
+          "simulated": {"p99_ms": sim.p99 * 1e3,
+                        "mean_ms": sim.mean_latency * 1e3},
+          "measured": {"p99_ms": s["p99"] * 1e3, "mean_ms": s["mean"] * 1e3,
+                       "completed": s["completed"], "failed": s["failed"]},
+          "batches": stats.batches, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    check_served("session", s, 32)
+    if th.is_alive() or "alloc" not in swap or eng.swaps != 1:
+        raise AssertionError(f"session: {eng.swaps} swaps, reallocation "
+                             f"{'done' if 'alloc' in swap else 'not done'}")
+    if not (ev.feasible and eng.alloc is runtime.current is swap["alloc"]):
+        raise AssertionError("session: the engine does not serve the "
+                             "runtime's feasible re-solve")
+    on_one_card("session re-solve", runtime.current)
+    # each batch passes every stage once, plus one warm-up per stage
+    check_launches("session", launches,
+                   {name: per_batch * (stats.batches + 1)
+                    for name, _, per_batch in kernels})
+    return launches
+
+
+def session_faults_phase(chain: str, stages, profiles, kernels) -> dict:
+    """The chain served through ``CamelotSession.serve`` with
+    ``ServeSpec(max_retries=1, retry_backoff=0.01)``, its last stage
+    wrapped in ``FirstCallFails``: the failed batch is retried once and
+    every query completes; the kernels launch once per layer of every
+    call that ran.  Returns the trace's launches."""
+    from repro_torch.camelot import (CamelotSession, ClusterSpec, QoSSpec,
+                                     SAConfig, ServeSpec)
+    from repro_torch.core import H100
+    t_phase = time.perf_counter()
+    sess = CamelotSession(served_spec(chain, stages, profiles),
+                          ClusterSpec(device=H100, devices=1),
+                          QoSSpec(latency_target=1.0), batch=4)
+    sess.profile()
+    res = sess.solve("max-peak", sa=SAConfig(
+        iterations=FACADE_SA_ITERATIONS, seed=0))
+    flaky = FirstCallFails(stages[-1])
+    eng = sess.serve(stages=list(stages[:-1]) + [flaky], result=res,
+                     spec=ServeSpec(max_retries=1, retry_backoff=0.01))
+    calls = [st.calls for st in stages]
+    counts = zero_counts(kernels)
+    stats = eng.run_trace(sess.make_trace(32, 40.0, seed=7))
+    launches = counts()
+    calls = [st.calls - c for st, c in zip(stages, calls)]
+    s = stats.summary()
+    emit({"phase": "session_faults", "chain": chain, "queries": 32,
+          "qps": 40.0, "max_retries": 1, "retry_backoff_s": 0.01,
+          "raised": flaky.raised, "retries": s["retries"],
+          "completed": s["completed"], "failed": s["failed"],
+          "p99_ms": s["p99"] * 1e3, "mean_ms": s["mean"] * 1e3,
+          "batches": stats.batches, "stage_calls": calls,
+          "launches": launches, "seconds": time.perf_counter() - t_phase})
+    check_served("session_faults", s, 32, retries=1)
+    if flaky.raised != 1 or calls != [stats.batches] * len(stages):
+        raise AssertionError(f"session_faults: raised {flaky.raised}, "
+                             f"stage calls {calls} for {stats.batches} "
+                             "batches")
+    # each stage's launches: its layers x (its calls + its warm-up)
+    check_launches("session_faults", launches, {
+        name: sum(layers_of([st], kind) * (c + 1)
+                  for st, c in zip(stages, calls))
+        for name, kind in (("flash_attention_bhsd", "attn"),
+                           ("mlstm_chunk_step", "mlstm"))
+        if name in launches})
+    return launches
+
+
+def multi_session_phase(chains, kernels) -> dict:
+    """``MultiServiceSession`` over both chains on one H100, each from its
+    live-fitted profiles: one joint ``solve("max-peak")``, ``simulate([20,
+    20])``, then ``serve(tenant_stages=...)`` with ``make_traces(32, [20,
+    20], seed=7)`` on the shared pool.  Returns the traces' launches."""
+    from repro_torch.camelot import (ClusterSpec, MultiServiceSession,
+                                     QoSSpec, SAConfig, TenantSpec)
+    from repro_torch.core import H100
+    t_phase = time.perf_counter()
+    sess = MultiServiceSession(
+        [TenantSpec(served_spec(chain, stages, profiles),
+                    QoSSpec(latency_target=1.0))
+         for chain, stages, profiles in chains],
+        ClusterSpec(device=H100, devices=1), batch=4, name="paper-chains")
+    sess.profile()
+    t0 = time.perf_counter()
+    res = sess.solve("max-peak", sa=SAConfig(
+        iterations=FACADE_SA_ITERATIONS, seed=0))
+    solve_s = time.perf_counter() - t0
+    if not res.feasible:
+        raise AssertionError("multi_session: no feasible joint solve")
+    on_one_card("multi_session", res.allocation)
+    sim = sess.simulate([20.0, 20.0])
+    eng = sess.serve(tenant_stages=[stages for _, stages, _ in chains])
+    traces = sess.make_traces(32, [20.0, 20.0], seed=7)
+    counts = zero_counts(kernels)
+    stats = eng.run_traces(traces)
+    launches = counts()
+    rows = []
+    for (chain, _, _), st, sm, part in zip(chains, stats, sim.per_tenant,
+                                           sess.split()):
+        s = st.summary()
+        rows.append({"chain": chain, "stages": alloc_row(part),
+                     "simulated": {"p99_ms": sm.p99 * 1e3,
+                                   "mean_ms": sm.mean_latency * 1e3},
+                     "measured": {"p99_ms": s["p99"] * 1e3,
+                                  "mean_ms": s["mean"] * 1e3,
+                                  "completed": s["completed"],
+                                  "failed": s["failed"]},
+                     "batches": st.batches})
+    emit({"phase": "multi_session", "queries": 32, "qps": [20.0, 20.0],
+          "solve": {"predicted_lambda": res.objective, "wall_s": solve_s},
+          "tenants": rows, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    for (chain, _, _), st in zip(chains, stats):
+        check_served(f"multi_session {chain}", st.summary(), 32)
+    check_launches("multi_session", launches, {
+        name: sum(layers_of(stages, kind) * (st.batches + 1)
+                  for (_, stages, _), st in zip(chains, stats))
+        for name, kind in (("flash_attention_bhsd", "attn"),
+                           ("mlstm_chunk_step", "mlstm"))})
+    return launches
+
+
+def facade_phases(chains, kernels) -> dict:
+    """The three facade phases; ``chains``: (name, live stage servers,
+    fitted profiles) of the qwen chain, then text-to-img."""
+    qwen = chains[0]
+    return {"session": session_phase(*qwen, kernels),
+            "session_faults": session_faults_phase(*qwen, kernels),
+            "multi_session": multi_session_phase(chains, kernels)}
+
+
 def serve_pipelines(fa, ms) -> tuple:
     """The two chains of the paper's services, one after the other, each
     served on the hand-built allocation (``serve``) and then through
     Camelot's loop on the same stage servers (``camelot``); at seq_len 16
-    each mLSTM layer runs one chunk per batch.  Returns each chain's
-    kernel launches in the two phases."""
+    each mLSTM layer runs one chunk per batch.  Then the facade phases on
+    both chains' servers.  Returns each chain's kernel launches in the
+    two phases, and the facade phases' launches."""
     from repro_torch.serving import ModelStageServer
     chains = (
         ("qwen3-0.6b->qwen1.5-0.5b", (("stage0", "qwen3-0.6b", 0),
@@ -1606,7 +1887,7 @@ def serve_pipelines(fa, ms) -> tuple:
          (0, 1)),
         ("text-to-img", (("semantic-understanding", "xlstm-1.3b", 3),
                          ("image-generation", "qwen1.5-0.5b", 1)), (0,)))
-    out = []
+    out, live = [], []
     for chain, specs, breakdown in chains:
         stages = [ModelStageServer(name, arch, seq_len=16, seed=seed)
                   for name, arch, seed in specs]
@@ -1617,11 +1898,17 @@ def serve_pipelines(fa, ms) -> tuple:
         served, summaries = serve_chain(
             chain, stages, build_allocation(len(stages), instances=2,
                                             batch=4), kernels)
-        camelot = camelot_chain(chain, stages, kernels, summaries["auto"])
+        camelot, profiles = camelot_chain(chain, stages, kernels,
+                                          summaries["auto"])
         out.append((served, camelot))
-        del stages
-        gc_collect()
-    return out
+        live.append((chain, stages, profiles))
+    qwen_stages = live[0][1]
+    facade = facade_phases(live, [
+        ("flash_attention_bhsd", fa, layers_of(qwen_stages, "attn")),
+        ("mlstm_chunk_step", ms, layers_of(qwen_stages, "mlstm"))])
+    del live, stages, qwen_stages
+    gc_collect()
+    return out, facade
 
 
 def main() -> int:
@@ -1671,7 +1958,7 @@ def main() -> int:
     # path, whose counts are the kernels line's ``launches``)
     launches_prefill = prefill_full_width(fa, ops, Transformer, get_config)
     launches_prefill_mlstm = prefill_xlstm(ms, ops, Transformer, get_config)
-    (first, camelot_first), (second, camelot_second) = \
+    ((first, camelot_first), (second, camelot_second)), facade = \
         serve_pipelines(fa, ms)
     # the decode path: the decode kernel's count from 0 before each
     # model's timed steps; the prefills before them count the others
@@ -1710,6 +1997,9 @@ def main() -> int:
     main_row = timing[0]
     attn_serve = first["flash_attention_bhsd"] \
         + second["flash_attention_bhsd"]
+    # the facade phases' launches, by phase, for each kernel
+    facade_by = {name: {phase: n[name] for phase, n in facade.items()}
+                 for name in ("flash_attention_bhsd", "mlstm_chunk_step")}
     mlstm_row = timing_mlstm[0]           # the serving shape, L = 16
     decode_row = timing_decode[0]         # qwen3-0.6b's, B 4, Sc 2080
     ssm_row = timing_ssm[0]               # jamba's chunk at B 4
@@ -1720,8 +2010,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:89",
         "launches": attn_serve + camelot_first["flash_attention_bhsd"]
-        + camelot_second["flash_attention_bhsd"],
+        + camelot_second["flash_attention_bhsd"]
+        + sum(facade_by["flash_attention_bhsd"].values()),
         "launches_serve": attn_serve,
+        "launches_facade": facade_by["flash_attention_bhsd"],
         "launches_serve_chain": first["flash_attention_bhsd"],
         "launches_serve_text_to_img": second["flash_attention_bhsd"],
         "launches_camelot_chain": camelot_first["flash_attention_bhsd"],
@@ -1742,8 +2034,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_scan.py:78",
         "launches": second["mlstm_chunk_step"]
-        + camelot_second["mlstm_chunk_step"],
+        + camelot_second["mlstm_chunk_step"]
+        + sum(facade_by["mlstm_chunk_step"].values()),
         "launches_serve": second["mlstm_chunk_step"],
+        "launches_facade": facade_by["mlstm_chunk_step"],
         "launches_serve_chain": first["mlstm_chunk_step"],
         "launches_camelot_chain": camelot_first["mlstm_chunk_step"],
         "launches_camelot_text_to_img": camelot_second["mlstm_chunk_step"],

@@ -13,6 +13,10 @@ the card unless the caller passes ``device="cpu"``.  Ported so far:
   predictor, the simulator, the contention-aware allocator (scalar,
   vectorized, incremental and hierarchical solves), placement, the
   execution core and the workloads;
-- ``serving``: the threads serving engine; ``launch.serve``: profile the
-  stages live, fit, solve, serve.
+- ``core`` also holds the online runtime (``runtime.py``) and the tenant
+  lifecycle (``lifecycle.py``); ``camelot``: the facade over all of it
+  (``CamelotSession``, ``MultiServiceSession``, specs and policies);
+- ``serving``: the threads serving engine, with live allocation swaps,
+  retries and deadlines; ``launch.serve``: profile the stages live, fit,
+  solve, serve.
 """

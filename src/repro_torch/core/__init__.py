@@ -8,6 +8,8 @@
 #   exec.py       — the pipeline-execution core shared by the live engine
 #                   and the simulator
 #   faults.py     — fault scripts the simulator injects
+#   runtime.py    — the online reallocation loop and the health monitor
+#   lifecycle.py  — tenant admission, eviction, preemption and mutation
 #   qos.py        — tail-latency tracking
 from repro_torch.core.allocator import (CamelotAllocator,
                                         MultiTenantAllocator, SAConfig,
@@ -23,6 +25,8 @@ from repro_torch.core.exec import (BatchingPolicy, EdgeRoute, ExecCore,
 from repro_torch.core.faults import (DeviceFailure, FaultSpec, Straggle,
                                      TransientErrors)
 from repro_torch.core.hierarchy import HierarchicalSolver
+from repro_torch.core.lifecycle import (AdmissionDecision, AdmissionQuote,
+                                        LifecycleEvent, LifecycleManager)
 from repro_torch.core.mlmodels import (DecisionTreeRegressor,
                                        LinearRegression,
                                        RandomForestRegressor,
@@ -31,6 +35,9 @@ from repro_torch.core.predictor import (PipelinePredictor, StagePredictor,
                                         TabulatedStagePredictor,
                                         collect_samples, profile_from_engine)
 from repro_torch.core.qos import QoSTracker
+from repro_torch.core.runtime import (CamelotRuntime, HealthMonitor,
+                                      MultiTenantRuntime, ReallocationEvent,
+                                      RuntimeConfig, diurnal_load)
 from repro_torch.core.types import (H100, QUOTA_GRID, QUOTA_STEP,
                                     RTX_2080TI, UTILITY_FNS, V100,
                                     Allocation, CompiledTopology, DeviceSpec,
@@ -40,7 +47,11 @@ from repro_torch.core.types import (H100, QUOTA_GRID, QUOTA_STEP,
 
 __all__ = [
     "CamelotAllocator", "MultiTenantAllocator", "SAConfig", "SolveResult",
-    "HierarchicalSolver", "PodConfig", "UTILITY_FNS", "CommModel",
+    "HierarchicalSolver", "PodConfig", "AdmissionDecision",
+    "AdmissionQuote", "LifecycleEvent", "LifecycleManager",
+    "CamelotRuntime", "HealthMonitor", "MultiTenantRuntime",
+    "ReallocationEvent", "RuntimeConfig", "diurnal_load",
+    "UTILITY_FNS", "CommModel",
     "DeviceHandoff", "EdgeChannel", "HostStagedChannel", "GLOBAL_MEMORY",
     "HOST_STAGED", "ICI", "select_mechanism", "mechanism_time",
     "BatchingPolicy", "EdgeRoute", "ExecCore", "ReadyBatch", "StageInstance",

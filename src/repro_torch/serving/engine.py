@@ -16,6 +16,13 @@ the given stage servers).  Fan-out sends one payload per out-edge; fan-in
 waits on the core's join barrier and feeds the consumer a deterministic,
 branch-order-independent combination of the predecessor outputs.
 
+Retry backoff is driver-scheduled: a failing batch is requeued with a
+timed wake (``retry_backoff × 2^attempt``) instead of sleeping inside a
+worker slot, so a backing-off batch never idles an otherwise-free
+instance.  ``apply_allocation`` makes ``CamelotRuntime.reallocate``
+applicable to a running engine: allocations swap between batches while
+in-flight work drains.
+
 Only ``backend="threads"`` is ported; the worker-process backend with CUDA
 IPC hand-off is a later item of ROADMAP.md (Queue A, process backend).
 """
@@ -26,7 +33,9 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Sequence
+from heapq import heappop, heappush
+from itertools import count
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -150,7 +159,10 @@ class ServeStats:
     comm_time: float = 0.0
     compute_time: float = 0.0
     batches: int = 0
-    failed: int = 0                    # queries lost to a stage exception
+    failed: int = 0                    # queries lost (stage exceptions
+                                       # past the retry budget, deadline
+                                       # abandonment)
+    retries: int = 0                   # retry attempts scheduled
 
     def summary(self) -> dict:
         return {
@@ -162,6 +174,7 @@ class ServeStats:
             "comm_frac": self.comm_time
                          / max(self.comm_time + self.compute_time, 1e-12),
             "failed": self.failed,
+            "retries": self.retries,
         }
 
 
@@ -191,7 +204,8 @@ class PipelineEngine:
     ``allocation`` (placed) decides how many concurrent instances each
     node runs; omitted, one instance per node.  ``comm_mechanism``: "auto"
     routes each edge payload via the crossover rule; "device"/"host" pin
-    the mechanism for A/B comparisons.
+    the mechanism for A/B comparisons.  ``max_retries``/``retry_backoff``/
+    ``deadline`` are the fault knobs of ``MultiTenantEngine``.
     """
 
     def __init__(self, stages: Sequence, comm_mechanism: str = "auto",
@@ -200,6 +214,8 @@ class PipelineEngine:
                  allocation: Optional[Allocation] = None,
                  comm_model: Optional[CommModel] = None,
                  graph: Optional[ServiceGraph] = None,
+                 max_retries: int = 0, retry_backoff: float = 0.0,
+                 deadline: Optional[float] = None,
                  backend: str = "threads"):
         self.stages = list(stages)
         if graph is None:
@@ -219,8 +235,17 @@ class PipelineEngine:
             [self.stages], [graph], [allocation],
             comm_mechanism=comm_mechanism, batch_timeout=batch_timeout,
             comm_model=self.comm_model, qos_targets=[qos_target],
-            backend=backend)
+            max_retries=max_retries, retry_backoff=retry_backoff,
+            deadline=deadline, backend=backend)
         self.channels = self._inner.tenants[0].channels
+
+    @property
+    def backend(self) -> str:
+        return self._inner.backend
+
+    @property
+    def worker_restarts(self) -> int:
+        return self._inner.worker_restarts
 
     def close(self) -> None:
         self._inner.close()
@@ -238,6 +263,17 @@ class PipelineEngine:
     @property
     def batch_size(self) -> int:
         return self._inner.tenants[0].batch_size
+
+    @property
+    def swaps(self) -> int:
+        return self._inner.swaps
+
+    def apply_allocation(self, allocation: Allocation) -> None:
+        """Queue an Allocation(+Placement) swap.  A running trace applies it
+        between batches — in-flight batches drain on the old instances, the
+        next dispatch uses the new pool.  Safe to call from another thread
+        (e.g. a CamelotRuntime reallocating against live load)."""
+        self._inner.apply_allocations([allocation])
 
     def run_trace(self, queries: List[Query]) -> ServeStats:
         """Replay: queries arrive per their timestamps; the core forms
@@ -298,18 +334,69 @@ class _TenantServe:
     batch_size: int
 
 
+class _RetryQueue:
+    """Driver-side timed retry requeue.
+
+    A failing batch does not sleep out its backoff inside a worker slot:
+    the slot is released at once and the batch re-enters its ready queue
+    once ``retry_backoff × 2^attempt`` has elapsed, so an otherwise-free
+    instance keeps serving other batches meanwhile."""
+
+    def __init__(self):
+        self.heap: List[Tuple[float, int, int, ReadyBatch, int]] = []
+        self._seq = count()
+        self._attempts: Dict[Tuple[int, int], int] = {}
+
+    def schedule(self, wake: float, ti: int, rb: ReadyBatch,
+                 attempt: int) -> None:
+        heappush(self.heap, (wake, next(self._seq), ti, rb, attempt))
+
+    def due(self, now: float) -> List[Tuple[int, ReadyBatch, int]]:
+        out = []
+        while self.heap and self.heap[0][0] <= now:
+            _, _, ti, rb, attempt = heappop(self.heap)
+            out.append((ti, rb, attempt))
+        return out
+
+    def next_wake(self) -> Optional[float]:
+        return self.heap[0][0] if self.heap else None
+
+    def __bool__(self) -> bool:
+        return bool(self.heap)
+
+    # a requeued batch re-enters core.ready; its attempt count rides here
+    # until the dispatch that re-submits it
+    def mark(self, ti: int, rb: ReadyBatch, attempt: int) -> None:
+        self._attempts[(ti, id(rb))] = attempt
+
+    def take(self, ti: int, rb: ReadyBatch) -> int:
+        return self._attempts.pop((ti, id(rb)), 0)
+
+
 class MultiTenantEngine:
     """N tenant service graphs co-served from ONE shared thread pool.
 
     Each tenant gets its own ``ExecCore`` (admission, batching, ready
     queues against its slice of the joint ``Placement``) and its own
     per-edge channels; every dispatch lands in one ``ThreadPoolExecutor``
-    sized by the total placed instance count.
+    sized by the total placed instance count.  ``apply_allocations``
+    swaps all tenants' allocations between batches
+    (``MultiTenantRuntime`` pushes the service-scoped slices of each joint
+    re-solve here).
 
-    A stage that raises loses its batch: the queries are counted failed
-    and the batch is abandoned, so the trace still ends.  Retries,
-    deadlines and live allocation swaps are not ported yet (ROADMAP.md).
-    ``backend`` must be ``"threads"``; the process backend is not ported.
+    Fault knobs:
+
+    * ``max_retries`` — a batch whose stage raises is requeued (bounded,
+      after ``retry_backoff × 2^attempt`` seconds, driver-side) before it
+      counts as failed;
+    * a batch past its retry budget is *abandoned* (its queries count in
+      ``ServeStats.failed``) and the trace drains;
+    * ``deadline`` — queries still waiting past this many seconds after
+      arrival are abandoned at admission (counted failed), so a degraded
+      pool sheds backlog instead of serving un-meetable requests.
+
+    ``backend`` must be ``"threads"``; the process backend is not ported,
+    so ``worker_restarts`` stays 0.
     """
 
     def __init__(self, tenant_stages: Sequence[Sequence],
@@ -318,6 +405,8 @@ class MultiTenantEngine:
                  comm_mechanism: str = "auto", batch_timeout: float = 0.05,
                  comm_model: Optional[CommModel] = None,
                  qos_targets: Optional[Sequence[float]] = None,
+                 max_retries: int = 0, retry_backoff: float = 0.0,
+                 deadline: Optional[float] = None,
                  backend: str = "threads"):
         if backend == "processes":
             raise NotImplementedError(PROCESSES_NOT_PORTED)
@@ -345,6 +434,13 @@ class MultiTenantEngine:
             raise ValueError("one QoS target per tenant")
         self.qos_targets = [float(t) for t in qos_targets]
         self.batch_timeout = batch_timeout
+        self.max_retries = int(max_retries)
+        self.retry_backoff = float(retry_backoff)
+        self.deadline = deadline
+        self._pending_allocs: Optional[List[Allocation]] = None
+        self._alloc_lock = threading.Lock()
+        self.swaps = 0
+        self.worker_restarts = 0
         self.backend = backend
         self.comm_mechanism = comm_mechanism
 
@@ -356,6 +452,38 @@ class MultiTenantEngine:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    # ---- live joint re-allocation -------------------------------------
+
+    def apply_allocations(self, allocations: Sequence[Allocation]) -> None:
+        """Queue a per-tenant allocation swap (one placed Allocation per
+        tenant — the split of a joint re-solve).  A running trace applies
+        it between batches; safe to call from another thread."""
+        allocations = list(allocations)
+        if len(allocations) != len(self.tenants):
+            raise ValueError(f"{len(allocations)} allocations for "
+                             f"{len(self.tenants)} tenants")
+        for a, t in zip(allocations, self.tenants):
+            _check_allocation(a, t.graph.n_nodes)
+        with self._alloc_lock:
+            self._pending_allocs = allocations
+
+    def _apply_pending(self, cores: List[ExecCore],
+                       ex: ThreadPoolExecutor) -> None:
+        with self._alloc_lock:
+            allocs = self._pending_allocs
+            self._pending_allocs = None
+        if allocs is None:
+            return
+        for t, core, alloc in zip(self.tenants, cores, allocs):
+            t.alloc = alloc
+            t.batch_size = alloc.stages[0].batch
+            core.batching.batch_size = t.batch_size
+            core.reset_instances(alloc.placement)
+        # a swap to more instances grows the shared pool
+        total = sum(len(c.instances) for c in cores)
+        ex._max_workers = max(ex._max_workers, total)
+        self.swaps += 1
 
     # ---- trace replay --------------------------------------------------
 
@@ -373,6 +501,7 @@ class MultiTenantEngine:
                           comm=self.comm_model)
                  for t in self.tenants]
         completions: queue.Queue = queue.Queue()
+        retry = _RetryQueue()
         in_flight = 0
         idx = [0] * len(self.tenants)
         lens = [len(tr) for tr in traces]
@@ -380,27 +509,42 @@ class MultiTenantEngine:
         total_inst = sum(len(c.instances) for c in cores)
         with ThreadPoolExecutor(max_workers=max(total_inst, 1)) as ex:
             while any(i < n for i, n in zip(idx, lens)) or in_flight \
-                    or any(c.has_work() for c in cores):
+                    or retry or any(c.has_work() for c in cores):
                 now = time.perf_counter() - start
+                self._apply_pending(cores, ex)
+                self._requeue_due(retry, cores, now)
                 for ti, (t, core, tr) in enumerate(
                         zip(self.tenants, cores, traces)):
                     while idx[ti] < lens[ti] and \
                             tr[idx[ti]].arrival <= now:
                         core.admit(tr[idx[ti]], tr[idx[ti]].arrival)
                         idx[ti] += 1
+                    if self.deadline is not None and core.pending:
+                        # per-query deadline: abandon arrivals that have
+                        # already waited past it instead of batching them
+                        keep = [(a, q) for a, q in core.pending
+                                if now - a <= self.deadline]
+                        n_drop = len(core.pending) - len(keep)
+                        if n_drop:
+                            core.pending = keep
+                            stats[ti].failed += n_drop
                     for rb in core.form_batches(now):
                         rb.data = _stack_tokens(
                             [q.tokens for q in rb.items], t.batch_size,
                             t.stages[rb.stage].device)
                     for inst, rb in core.dispatch(now):
                         in_flight += 1
-                        ex.submit(self._worker, ti, inst, rb, completions)
+                        ex.submit(self._worker, ti, inst, rb, completions,
+                                  retry.take(ti, rb))
                 # sleep until the next event across ALL tenants
                 wake = [traces[ti][idx[ti]].arrival
                         for ti in range(len(self.tenants))
                         if idx[ti] < lens[ti]]
                 wake += [d for d in (c.batch_deadline() for c in cores)
                          if d is not None]
+                rw = retry.next_wake()
+                if rw is not None:
+                    wake.append(rw)
                 timeout = (min(wake) - now) if wake else 0.05
                 timeout = min(max(timeout, 0.0005), 0.05)
                 try:
@@ -409,7 +553,7 @@ class MultiTenantEngine:
                     continue
                 while True:
                     in_flight -= 1
-                    self._complete(ev, cores, stats, start)
+                    self._complete(ev, cores, stats, start, retry)
                     try:
                         ev = completions.get_nowait()
                     except queue.Empty:
@@ -419,27 +563,55 @@ class MultiTenantEngine:
     # ---- internals -----------------------------------------------------
 
     def _worker(self, ti: int, inst: StageInstance, rb: ReadyBatch,
-                completions: queue.Queue) -> None:
-        """ONE stage execution; the outcome (output or exception) goes to
-        the driver."""
+                completions: queue.Queue, attempt: int) -> None:
+        """ONE stage execution attempt; the outcome (output or exception)
+        goes to the driver, which schedules any retry."""
         t0 = time.perf_counter()
         try:
             out, err = \
                 self.tenants[ti].stages[inst.stage].process(rb.data), None
         except Exception as e:      # reported to the driver, never lost
             out, err = None, e
-        completions.put((ti, inst, rb, out, time.perf_counter() - t0, err))
+        completions.put((ti, inst, rb, out, time.perf_counter() - t0, err,
+                         attempt))
+
+    def _fail_or_retry(self, ti: int, rb: ReadyBatch, attempt: int,
+                       core: ExecCore, stats: ServeStats,
+                       retry: _RetryQueue, now: float) -> None:
+        """Schedule a timed requeue while the retry budget lasts, else
+        count the batch failed and abandon it, so its join/exit
+        bookkeeping cannot strand the trace."""
+        if rb.bid in core._abandoned:
+            return
+        if attempt < self.max_retries:
+            stats.retries += 1
+            retry.schedule(now + self.retry_backoff * (2 ** attempt),
+                           ti, rb, attempt + 1)
+            return
+        stats.failed += len(rb.items)
+        core.abandon(rb.bid)
+
+    def _requeue_due(self, retry: _RetryQueue, cores: List[ExecCore],
+                     now: float) -> None:
+        """Re-enter backed-off batches whose wake time has passed into
+        their stage's ready queue (their attempt count rides in the retry
+        queue until dispatch re-submits them)."""
+        for ti, rb, attempt in retry.due(now):
+            if rb.bid in cores[ti]._abandoned:
+                continue
+            retry.mark(ti, rb, attempt)
+            cores[ti].ready[rb.stage].append(rb)
 
     def _complete(self, ev, cores: List[ExecCore],
-                  stats: List[ServeStats], start: float) -> None:
-        ti, inst, rb, out, dt, err = ev
+                  stats: List[ServeStats], start: float,
+                  retry: _RetryQueue) -> None:
+        ti, inst, rb, out, dt, err, attempt = ev
         t = self.tenants[ti]
         core = cores[ti]
         core.release(inst, busy_for=dt)
         if err is not None:
-            if rb.bid not in core._abandoned:
-                stats[ti].failed += len(rb.items)
-                core.abandon(rb.bid)
+            self._fail_or_retry(ti, rb, attempt, core, stats[ti], retry,
+                                time.perf_counter() - start)
             return
         stats[ti].compute_time += dt
         u = rb.stage

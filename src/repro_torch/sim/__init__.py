@@ -14,7 +14,7 @@ from repro_torch.sim.workloads import (artifact_pipelines, artifact_stage,
                                        multitenant_suite,
                                        shared_backbone_service,
                                        synthetic_predictor,
-                                       synthetic_tenant_set)
+                                       synthetic_tenant_set, workload_specs)
 
 __all__ = [
     "DeviceFailure", "FaultSpec", "Straggle", "TransientErrors",
@@ -25,4 +25,5 @@ __all__ = [
     "find_peak_load", "artifact_pipelines", "artifact_stage", "camelot_suite",
     "dag_suite", "diamond_service", "ensemble_service", "multitenant_suite",
     "shared_backbone_service", "synthetic_predictor", "synthetic_tenant_set",
+    "workload_specs",
 ]

@@ -18,10 +18,8 @@ allocations.  Camelot itself is graph-aware through ``CamelotAllocator``
   * ``camelot``         — the full system (SA allocator, global-memory comm).
   * ``camelot_nc``      — Camelot without the bandwidth constraint (§VIII-D).
 
-The reference wraps these functions behind its ``camelot`` facade's
-policy registry (``session.solve(policy="even" | "laius" | ...)``); the
-port's facade is ROADMAP.md Queue A 1c, so callers use the functions
-directly.
+``repro_torch.camelot``'s policy registry wraps these functions
+(``session.solve(policy="even" | "laius" | ...)``).
 """
 from __future__ import annotations
 

@@ -420,3 +420,20 @@ def artifact_pipelines(device: DeviceSpec = RTX_2080TI) -> Dict[str, Pipeline]:
                     artifact_stage("m", mi, device),
                 ], qos_target=0.25)
     return out
+
+
+def workload_specs(device: DeviceSpec = RTX_2080TI,
+                   include_artifacts: bool = False) -> Dict:
+    """Every suite workload as declarative data: the chain suite plus the
+    DAG suite (and optionally the 27 artifact pipelines) lifted to
+    ``repro_torch.camelot.ServiceSpec`` — the facade's spec-driven entry
+    point for examples and benchmarks."""
+    # function-level import: repro_torch.camelot sits ABOVE this module
+    # (its session imports repro_torch.sim), so a module-level import
+    # would cycle
+    from repro_torch.camelot.specs import ServiceSpec
+    graphs: Dict[str, ServiceGraph] = {**camelot_suite(device),
+                                       **dag_suite(device)}
+    if include_artifacts:
+        graphs.update(artifact_pipelines(device))
+    return {name: ServiceSpec.from_graph(g) for name, g in graphs.items()}

@@ -402,3 +402,23 @@ def test_cuda_jamba_prefill_runs_the_kernel_per_mamba_layer_and_chunk(card):
     assert torch.equal(logits.argmax(-1), plain.argmax(-1))
     np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(),
                                atol=1e-4, rtol=1e-3)
+
+
+def test_cuda_camelot_session_serves_on_the_card(card):
+    """``CamelotSession.serve()`` builds the port's stage servers on the
+    card (reduced width here): the solved allocation serves every query,
+    and each batch runs the attention kernel once per layer."""
+    from repro_torch.camelot import CamelotSession, ClusterSpec, SAConfig
+    from repro_torch.sim import workload_specs
+    sess = CamelotSession(workload_specs()["img-to-img"],
+                          ClusterSpec(devices=1), batch=4)
+    res = sess.solve(policy="max-peak", sa=SAConfig(iterations=300, seed=0))
+    eng = sess.serve(result=res, reduced=True)
+    assert all(st.device.type == "cuda" for st in eng.stages)
+    layers = sum(st.cfg.block_pattern.count("attn") * st.cfg.num_superblocks
+                 for st in eng.stages)
+    before = fa.LAUNCHES
+    stats = eng.run_trace(sess.make_trace(8, qps=40.0, seed=1))
+    s = stats.summary()
+    assert s["completed"] == 8 and s["failed"] == 0
+    assert fa.LAUNCHES - before == layers * (stats.batches + 1)

@@ -2,8 +2,14 @@
 tests/test_serving.py, and parity with the reference's engine — on the
 chain, on a diamond DAG, and on an allocation that both packages' solvers
 chose from the same stage timings (the slice's profile -> fit -> solve ->
-serve path, and ``repro_torch.launch.serve`` end to end)."""
+serve path, and ``repro_torch.launch.serve`` end to end) — and the
+engine's knobs (live allocation swaps, retries with driver-side backoff,
+deadlines) against the reference's engine on stub stages: the contracts
+of tests/test_exec.py and tests/test_fault.py."""
 import dataclasses
+import threading
+import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +18,9 @@ import pytest
 import torch
 
 import repro.core as ref_core
+import repro.core.runtime as ref_runtime
+import repro.core.types as ref_types
+import repro.serving as ref_serving
 from repro.core.types import Allocation as RefAllocation
 from repro.core.types import Placement as RefPlacement
 from repro.core.types import ServiceEdge as RefServiceEdge
@@ -21,6 +30,10 @@ from repro.serving import ModelStageServer as RefStageServer
 from repro.serving import PipelineEngine as RefPipelineEngine
 from repro.serving import make_trace as ref_make_trace
 import repro_torch.core as port_core
+import repro_torch.core.runtime as port_runtime
+import repro_torch.core.types as port_types
+import repro_torch.serving as port_serving
+import repro_torch.sim as port_sim
 from repro_torch.core import HOST_STAGED, EdgeChannel
 from repro_torch.core.types import (H100, Allocation, Placement,
                                     ServiceEdge, ServiceGraph, StageAlloc)
@@ -339,3 +352,269 @@ def test_launch_serve_profiles_solves_and_serves(capsys):
     assert served["completed"] == 8 and served["failed"] == 0
     text = capsys.readouterr().out
     assert "camelot allocation" in text and "served 8 queries" in text
+
+
+# ---- the engine's knobs against the reference's, on stub stages ------------
+
+KNOBS = {
+    "ref": types.SimpleNamespace(core=ref_core, types=ref_types,
+                                 rt=ref_runtime, serving=ref_serving),
+    "port": types.SimpleNamespace(core=port_core, types=port_types,
+                                  rt=port_runtime, serving=port_serving),
+}
+
+
+class SleepStage:
+    """Deterministic stage that releases the interpreter lock: isolates the
+    engine's scheduling from model compute.  Emits zero ids, as a torch
+    tensor on the port's engine and a numpy array on the reference's."""
+
+    def __init__(self, service_time=0.02, seq_len=8, vocab=16):
+        self.service_time = service_time
+        self.seq_len = seq_len
+        self.cfg = types.SimpleNamespace(vocab_size=vocab)
+        self.device = torch.device("cpu")
+        self.calls = 0
+
+    def warmup(self, batch):
+        pass
+
+    def process(self, tokens):
+        time.sleep(self.service_time)
+        self.calls += 1
+        if isinstance(tokens, torch.Tensor):
+            return torch.zeros(tokens.shape[0], dtype=torch.int32)
+        return np.zeros((tokens.shape[0],), np.int32)
+
+
+class FailingStage(SleepStage):
+    """Raises on the first ``fail_first`` process calls, then succeeds."""
+
+    def __init__(self, fail_first=10 ** 9, **kw):
+        super().__init__(**kw)
+        self.fail_first = fail_first
+        self.tries = 0
+
+    def process(self, tokens):
+        self.tries += 1
+        if self.tries <= self.fail_first:
+            raise RuntimeError("injected stage fault")
+        return super().process(tokens)
+
+
+def _burst(pk, n):
+    return [pk.serving.Query(qid=i, arrival=0.0,
+                             tokens=np.zeros(8, np.int32))
+            for i in range(n)]
+
+
+def _n_alloc(pk, n, batch):
+    return pk.types.Allocation(
+        stages=[pk.types.StageAlloc(n, 1.0 / n, batch)],
+        placement=pk.types.Placement(per_stage=[[(0, 1.0 / n)] * n]))
+
+
+def _watchdog(fn, timeout=20.0):
+    """Run a trace on a side thread, so an engine that deadlocks fails the
+    test instead of hanging it."""
+    box = {}
+    th = threading.Thread(target=lambda: box.update(out=fn()), daemon=True)
+    th.start()
+    th.join(timeout)
+    assert not th.is_alive(), "engine deadlocked"
+    return box["out"]
+
+
+def _counts(stats):
+    s = stats.summary()
+    return {k: s[k] for k in ("completed", "failed", "retries")}
+
+
+def both_engines(fn):
+    """``fn(pk)`` on the reference's engine and on the port's; asserts
+    equal counts and returns the port's result."""
+    ref, port = fn(KNOBS["ref"]), fn(KNOBS["port"])
+    assert port == ref
+    return port
+
+
+def test_live_reallocation_swap_mid_trace():
+    """An allocation applied from another thread swaps between batches of
+    a running trace, and the trace still completes."""
+    def run(pk):
+        eng = pk.serving.PipelineEngine(
+            [SleepStage(service_time=0.04)],
+            allocation=pk.core.default_allocation(1, batch=2),
+            qos_target=5.0, batch_timeout=0.005)
+        timer = threading.Timer(
+            0.06, lambda: eng.apply_allocation(_n_alloc(pk, 2, 2)))
+        timer.start()
+        stats = _watchdog(lambda: eng.run_trace(_burst(pk, 12)))
+        timer.join()
+        return (_counts(stats), eng.swaps,
+                len(eng.alloc.placement.per_stage[0]), eng.batch_size)
+    assert both_engines(run) == ({"completed": 12, "failed": 0,
+                                  "retries": 0}, 1, 2, 2)
+
+
+def test_swap_between_traces_and_one_tenant_delegation():
+    def run(pk):
+        eng = pk.serving.PipelineEngine(
+            [SleepStage()], allocation=pk.core.default_allocation(1, 2),
+            qos_target=2.0, batch_timeout=0.005)
+        assert isinstance(eng._inner, pk.serving.MultiTenantEngine)
+        assert eng.alloc is eng._inner.tenants[0].alloc
+        assert eng.channels is eng._inner.tenants[0].channels
+        first = eng.run_trace(_burst(pk, 6))
+        eng.apply_allocation(_n_alloc(pk, 2, 4))
+        second = eng.run_trace(_burst(pk, 4))
+        return (_counts(first), first.batches, _counts(second),
+                second.batches, eng.swaps, eng.batch_size,
+                eng.backend, eng.worker_restarts)
+    assert both_engines(run)[1:] == (3, {"completed": 4, "failed": 0,
+                                         "retries": 0}, 1, 1, 4, "threads",
+                                     0)
+
+
+def test_multi_tenant_swap_and_its_refusals():
+    """``apply_allocations`` swaps every tenant between batches; the port
+    refuses an unplaced allocation or a wrong count with ValueError."""
+    def run(pk):
+        g = pk.types.ServiceGraph.chain("t", [None])
+        eng = pk.serving.MultiTenantEngine(
+            [[SleepStage()], [SleepStage()]], [g, g],
+            [pk.core.default_allocation(1, 2)] * 2, batch_timeout=0.005)
+        eng.apply_allocations([_n_alloc(pk, 2, 2), _n_alloc(pk, 3, 1)])
+        stats = eng.run_traces([_burst(pk, 4), _burst(pk, 3)])
+        return ([_counts(s) for s in stats], eng.swaps,
+                [len(t.alloc.placement.per_stage[0]) for t in eng.tenants],
+                [s.batches for s in stats])
+    assert both_engines(run)[1:] == (1, [2, 3], [2, 3])
+    g = port_types.ServiceGraph.chain("t", [None])
+    eng = MultiTenantEngine([[SleepStage()]], [g],
+                            [port_core.default_allocation(1, 2)])
+    with pytest.raises(ValueError, match="1 tenants"):
+        eng.apply_allocations([_n_alloc(KNOBS["port"], 2, 2)] * 2)
+    with pytest.raises(ValueError, match="placed"):
+        eng.apply_allocations([Allocation(stages=[StageAlloc(1, 1.0, 2)])])
+    assert eng.swaps == 0 and eng._pending_allocs is None
+
+
+def test_runtime_pushes_allocation_into_attached_engine():
+    """A CamelotRuntime's reallocation reaches the attached engine: the
+    reference's stub contract, then a live re-solve mid-trace on stub
+    stages of the img-to-img chain (the ``session`` phase of
+    chip_smoke.py, here on the CPU)."""
+    class _FakeEngine:
+        def __init__(self):
+            self.applied = []
+
+        def apply_allocation(self, alloc):
+            self.applied.append(alloc)
+
+    rt = port_runtime.CamelotRuntime.__new__(port_runtime.CamelotRuntime)
+    rt.rt = port_runtime.RuntimeConfig()
+    rt.peak_qps = 100.0
+    rt.peak_result = types.SimpleNamespace(
+        allocation=Allocation(stages=[StageAlloc(1, 1.0, 4)],
+                              placement=Placement(per_stage=[[(0, 1.0)]])),
+        feasible=True, objective=100.0, warm_started=False)
+    rt._load_est = 95.0
+    rt.current = rt.peak_result.allocation
+    rt.history = []
+    rt._engine = _FakeEngine()
+    alloc = rt.reallocate(now=0.0)
+    assert rt._engine.applied == [alloc]
+
+    pipe = port_sim.camelot_suite()["img-to-img"]
+    pred = port_core.PipelinePredictor.from_profiles(pipe.stages,
+                                                     port_core.RTX_2080TI)
+    live = port_runtime.CamelotRuntime(
+        pipe, pred, port_core.RTX_2080TI, 1, 4,
+        sa=port_core.SAConfig(iterations=300, seed=0))
+    peak = live.current
+    eng = PipelineEngine([SleepStage(0.01), SleepStage(0.01)],
+                         allocation=peak, qos_target=5.0,
+                         batch_timeout=0.005)
+    live.attach_engine(eng)
+
+    def resolve():
+        live.observe(20.0)
+        live.reallocate(now=0.1)
+
+    timer = threading.Timer(0.05, resolve)
+    timer.start()
+    # the trace outlasts the re-solve (tens of ms here) several times over
+    trace = [port_serving.Query(qid=i, arrival=0.02 * i,
+                                tokens=np.zeros(8, np.int32))
+             for i in range(40)]
+    stats = _watchdog(lambda: eng.run_trace(trace))
+    timer.join()
+    assert stats.summary()["completed"] == 40
+    assert eng.swaps == 1 and eng.alloc is live.current
+    assert live.current.total_quota() < peak.total_quota()
+    assert live.history[-1].provisioned_for == 20.0 * 0.3 * 1.25
+
+
+def test_worker_exception_drains_not_deadlocks():
+    def run(pk):
+        eng = pk.serving.PipelineEngine(
+            [FailingStage()], allocation=pk.core.default_allocation(1, 2),
+            qos_target=2.0, batch_timeout=0.005)
+        return _counts(_watchdog(lambda: eng.run_trace(_burst(pk, 4))))
+    assert both_engines(run) == {"completed": 0, "failed": 4, "retries": 0}
+
+
+def test_worker_retry_recovers():
+    def run(pk):
+        stage = FailingStage(fail_first=2)
+        eng = pk.serving.PipelineEngine(
+            [stage], allocation=pk.core.default_allocation(1, 4),
+            qos_target=5.0, batch_timeout=0.005, max_retries=2,
+            retry_backoff=0.0)
+        return _counts(_watchdog(lambda: eng.run_trace(_burst(pk, 4)))), \
+            stage.tries, stage.calls
+    assert both_engines(run) == ({"completed": 4, "failed": 0,
+                                  "retries": 2}, 3, 1)
+
+
+def test_retry_budget_spent_fails_the_batch():
+    def run(pk):
+        eng = pk.serving.PipelineEngine(
+            [FailingStage(fail_first=3)],
+            allocation=pk.core.default_allocation(1, 4), qos_target=5.0,
+            batch_timeout=0.005, max_retries=2, retry_backoff=0.0)
+        return _counts(_watchdog(lambda: eng.run_trace(_burst(pk, 4))))
+    assert both_engines(run) == {"completed": 0, "failed": 4, "retries": 2}
+
+
+def test_retry_backoff_does_not_idle_the_instance():
+    """The failed batch waits out its backoff in the driver's retry queue,
+    not in a worker slot: the three healthy single-query batches complete
+    on the free instance during the backoff."""
+    def run(pk):
+        stage = FailingStage(fail_first=1, service_time=0.005)
+        eng = pk.serving.PipelineEngine(
+            [stage], allocation=pk.core.default_allocation(1, batch=1),
+            qos_target=5.0, batch_timeout=0.0, max_retries=1,
+            retry_backoff=0.3)
+        stats = _watchdog(lambda: eng.run_trace(_burst(pk, 4)))
+        lat = sorted(stats.qos.latencies)
+        assert all(t < 0.25 for t in lat[:3]), lat
+        assert lat[3] >= 0.3, lat
+        return _counts(stats)
+    assert both_engines(run) == {"completed": 4, "failed": 0, "retries": 1}
+
+
+def test_deadline_abandons_stale_queries():
+    def run(pk):
+        stage = SleepStage()
+        eng = pk.serving.PipelineEngine(
+            [stage], allocation=pk.core.default_allocation(1, batch=4),
+            qos_target=5.0, batch_timeout=0.5, deadline=0.05)
+        # 2 queries never fill the 4-batch; the 0.5 s batch timeout sits
+        # past the 50 ms deadline, so both are abandoned before dispatch
+        return _counts(_watchdog(lambda: eng.run_trace(_burst(pk, 2)))), \
+            stage.calls
+    assert both_engines(run) == ({"completed": 0, "failed": 2,
+                                  "retries": 0}, 0)
