@@ -50,7 +50,21 @@ Phases, each printing one line per case:
      raises: one retry, all served) and ``multi_session``
      (``MultiServiceSession`` over both chains on one card, a joint
      solve, 32 queries at 20 qps for each tenant), each with 32/32
-     completed and exact kernel launches;
+     completed and exact kernel launches; then the process backend:
+     ``transport`` (the device arena's hand-off against the host-staged
+     round trip on the card, 64 B to 16 MiB, the measured crossover beside
+     the ``H100`` spec's modelled one), ``serve_processes`` (the ``serve``
+     trace on worker processes, stage 0's two instances on logical devices
+     0 and 1 and stage 1 on device 2, three workers on the one card with
+     unenforced quotas: the qwen chain under host/device/auto, text-to-img
+     under auto, the measured crossover in the comm model, the threads
+     backend's p99/mean beside; under "device" every edge pick
+     global-memory, by CUDA IPC) and ``session_processes``
+     (``CamelotSession.serve(spec=ServeSpec(backend="processes"))`` on the
+     qwen chain's fitted profiles, then a worker that kills itself on its
+     first call: restarted, its batch replayed); 32/32 each, and each
+     kernel's launches summed over the workers' exit reports equal to
+     layers x (batches + workers), every worker warming every stage once;
   7. decode: the decode-attention kernel against its plain version
      (``check_decode``: G 1/2/4/12, hd 64/128, Sc 1 to 4096, valid from 0
      to Sc and off the tile, bf16 on the tensor-core kernel and fp32 on
@@ -82,7 +96,8 @@ then a ``{"kernels": [...]}`` line (``launches``: each kernel's launches
 on its path, counted from 0 just before the path and read just after:
 the served traces for the prefill kernels, those of the ``serve`` phases
 plus the ``camelot`` phases' profiling and served trace and the facade
-phases' traces (each also beside it), the timed decode steps for
+phases' traces (each also beside it; ``launches_processes``: the
+process phases', counted in the workers), the timed decode steps for
 the decode kernel, the timed jamba prefill for the scan kernel; the other
 paths' counts beside them), the
 ``nvidia-smi`` line again, and as the last line
@@ -95,6 +110,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -1613,6 +1629,9 @@ def layers_of(stages, kind: str) -> int:
 # ---------------------------------------------------------------------------
 
 FACADE_SA_ITERATIONS = 1200
+# each kernel of the served chains and the block kind that launches it
+KERNEL_KINDS = (("flash_attention_bhsd", "attn"),
+                ("mlstm_chunk_step", "mlstm"))
 
 
 def served_spec(chain: str, stages, profiles):
@@ -1804,8 +1823,7 @@ def session_faults_phase(chain: str, stages, profiles, kernels) -> dict:
     check_launches("session_faults", launches, {
         name: sum(layers_of([st], kind) * (c + 1)
                   for st, c in zip(stages, calls))
-        for name, kind in (("flash_attention_bhsd", "attn"),
-                           ("mlstm_chunk_step", "mlstm"))
+        for name, kind in KERNEL_KINDS
         if name in launches})
     return launches
 
@@ -1859,8 +1877,7 @@ def multi_session_phase(chains, kernels) -> dict:
     check_launches("multi_session", launches, {
         name: sum(layers_of(stages, kind) * (st.batches + 1)
                   for (_, stages, _), st in zip(chains, stats))
-        for name, kind in (("flash_attention_bhsd", "attn"),
-                           ("mlstm_chunk_step", "mlstm"))})
+        for name, kind in KERNEL_KINDS})
     return launches
 
 
@@ -1873,13 +1890,248 @@ def facade_phases(chains, kernels) -> dict:
             "multi_session": multi_session_phase(chains, kernels)}
 
 
+# ---------------------------------------------------------------------------
+# the process backend: worker processes, CUDA IPC hand-off between them
+# ---------------------------------------------------------------------------
+
+QUOTAS_NOTE = ("quotas not enforced: no MPS, the workers' CUDA contexts "
+               "time-slice the card")
+
+
+class DiesOnFirstCall:
+    """A picklable stage server (spawned workers import it from this
+    file) that kills its own worker process on its first ``process`` call,
+    before any work; a sentinel file marks the crash, so the replacement
+    worker's replay goes to the server."""
+
+    def __init__(self, inner, sentinel: str):
+        self.inner, self.sentinel = inner, sentinel
+        self.name, self.seq_len, self.cfg, self.device = \
+            inner.name, inner.seq_len, inner.cfg, inner.device
+
+    def warmup(self, batch: int):
+        self.inner.warmup(batch)
+
+    def process(self, tokens):
+        if not Path(self.sentinel).exists():
+            Path(self.sentinel).touch()
+            os._exit(17)
+        return self.inner.process(tokens)
+
+
+def transport_phase() -> float:
+    """The device arena's hand-off against the host-staged round trip on
+    the card, 64 B to 16 MiB (median of 15 each); returns the measured
+    crossover, printed beside the ``H100`` spec's modelled one."""
+    from repro_torch.core import H100, CommModel
+    from repro_torch.serving import measure_device_transport
+    t0 = time.perf_counter()
+    tr = measure_device_transport(repeats=15)
+    emit({"phase": "transport", "sizes_bytes": tr["sizes"],
+          "device_arena_ms": [s * 1e3 for s in tr["shm_s"]],
+          "host_staged_ms": [s * 1e3 for s in tr["queue_s"]],
+          "measured_crossover_bytes": tr["crossover_bytes"],
+          "modelled_crossover_bytes": CommModel(H100).crossover_bytes(),
+          "modelled_by": "H100 DeviceSpec (ipc_latency, host link)",
+          "seconds": time.perf_counter() - t0})
+    return tr["crossover_bytes"]
+
+
+def spread_allocation():
+    """Stage 0's two instances on logical devices 0 and 1, stage 1 on
+    device 2: three workers, all on the one card."""
+    from repro_torch.core.types import Allocation, Placement, StageAlloc
+    return Allocation(stages=[StageAlloc(2, 1.0, 4), StageAlloc(1, 1.0, 4)],
+                      placement=Placement(per_stage=[[(0, 1.0), (1, 1.0)],
+                                                     [(2, 1.0)]]))
+
+
+def card_memory() -> dict:
+    """The driver's reserved device memory and the card's free memory
+    (GiB): the workers' models and contexts come out of the latter."""
+    free, total = torch.cuda.mem_get_info()
+    return {"driver_reserved_gib": torch.cuda.memory_reserved() / 2**30,
+            "card_free_gib": free / 2**30, "card_total_gib": total / 2**30}
+
+
+def worker_launches(eng) -> dict:
+    """Each kernel's launches, summed over the engine's closed workers."""
+    return {name: sum(r["launches"][name]
+                      for r in eng.worker_reports.values())
+            for name, _ in KERNEL_KINDS}
+
+
+def check_worker_launches(phase: str, stages, eng, batches: int) -> dict:
+    """Every worker warms every stage once, and each batch passes every
+    stage once: layers x (batches + workers) launches of each kernel."""
+    launches = worker_launches(eng)
+    workers = len(eng.worker_reports)
+    check_launches(phase, launches,
+                   {name: layers_of(stages, kind) * (batches + workers)
+                    for name, kind in KERNEL_KINDS})
+    return launches
+
+
+def serve_processes(chain: str, stages, mechanisms, crossover: float,
+                    threads: dict) -> dict:
+    """The ``serve`` phase's trace (32 queries, 40 qps, seed 7, batch 4,
+    timeout 50 ms) on the processes backend with ``spread_allocation``,
+    under each of ``mechanisms``, the comm model fed the measured
+    crossover; ``threads``: the ``serve`` phase's summaries by mechanism
+    (the threads backend, this run).  Returns the kernels' launches summed
+    over every pool's workers."""
+    from repro_torch.camelot import ClusterSpec
+    from repro_torch.core import GLOBAL_MEMORY, H100, HOST_STAGED
+    from repro_torch.serving import PipelineEngine, make_trace
+    comm = ClusterSpec(device=H100, devices=3,
+                       crossover_bytes=crossover).comm_model()
+    alloc = spread_allocation()
+    total = {name: 0 for name, _ in KERNEL_KINDS}
+    for mech in mechanisms:
+        t0 = time.perf_counter()
+        gc_collect()                     # the driver's cached blocks
+        memory = card_memory()
+        trace = make_trace(32, qps=40.0, seq_len=16,
+                           vocab=stages[0].cfg.vocab_size, seed=7)
+        with PipelineEngine(stages, comm_mechanism=mech, qos_target=1.0,
+                            batch_timeout=0.05, allocation=alloc,
+                            comm_model=comm, backend="processes") as eng:
+            stats = eng.run_trace(trace)
+            picks = dict(eng.channels[0].picks)
+        s = stats.summary()
+        th = threads[mech]
+        line = {"phase": "serve_processes", "chain": chain,
+                "mechanism": mech, "queries": 32, "qps": 40.0, "batch": 4,
+                "placement": alloc.placement.per_stage,
+                "workers": len(eng.worker_reports),
+                "crossover_bytes": comm.crossover_bytes(),
+                "p99_ms": s["p99"] * 1e3, "mean_ms": s["mean"] * 1e3,
+                "completed": s["completed"], "failed": s["failed"],
+                "batches": stats.batches, "comm_share": s["comm_frac"],
+                "edge0_picks": picks,
+                "threads_serve": {"p99_ms": th["p99"] * 1e3,
+                                  "mean_ms": th["mean"] * 1e3},
+                "quotas": QUOTAS_NOTE,
+                "worker_calls": {w: r["calls"]
+                                 for w, r in eng.worker_reports.items()},
+                "launches": worker_launches(eng), "memory": memory,
+                "seconds": time.perf_counter() - t0}
+        emit(line)
+        check_served(f"serve_processes {chain} {mech}", s, 32)
+        if line["workers"] != 3:
+            raise AssertionError(f"serve_processes: {line['workers']} "
+                                 "workers reported, want 3")
+        if mech == "device" and (picks[HOST_STAGED] != 0
+                                 or picks[GLOBAL_MEMORY] != stats.batches):
+            raise AssertionError(f"serve_processes {chain} device: edge "
+                                 f"picks {picks} for {stats.batches} "
+                                 "batches")
+        launched = check_worker_launches(
+            f"serve_processes {chain} {mech}", stages, eng, stats.batches)
+        for name in total:
+            total[name] += launched[name]
+    return total
+
+
+def session_processes_phase(chain: str, stages, profiles,
+                            crossover: float) -> dict:
+    """``CamelotSession.serve(spec=ServeSpec(backend="processes"))`` on the
+    chain's fitted profiles: the max-peak solve, placed on device 0 of one
+    card, is served by one worker; then the same with the last stage
+    wrapped in ``DiesOnFirstCall`` and ``max_retries=2``: the worker dies,
+    is restarted once and its batches replayed, and every query
+    completes.  Returns the first trace's launches summed over its
+    workers."""
+    from repro_torch.camelot import (CamelotSession, ClusterSpec, QoSSpec,
+                                     SAConfig, ServeSpec)
+    from repro_torch.core import H100
+    t0 = time.perf_counter()
+    gc_collect()
+    sess = CamelotSession(served_spec(chain, stages, profiles),
+                          ClusterSpec(device=H100, devices=1,
+                                      crossover_bytes=crossover),
+                          QoSSpec(latency_target=1.0), batch=4)
+    sess.profile()
+    res = sess.solve("max-peak", sa=SAConfig(
+        iterations=FACADE_SA_ITERATIONS, seed=0))
+    if not res.feasible:
+        raise AssertionError("session_processes: no feasible solve")
+    on_one_card("session_processes", res.allocation)
+    with sess.serve(stages=stages, result=res,
+                    spec=ServeSpec(backend="processes")) as eng:
+        stats = eng.run_trace(sess.make_trace(32, 40.0, seed=7))
+    s = stats.summary()
+    emit({"phase": "session_processes", "chain": chain, "queries": 32,
+          "qps": 40.0, "stages": alloc_row(res.allocation),
+          "workers": len(eng.worker_reports),
+          "p99_ms": s["p99"] * 1e3, "mean_ms": s["mean"] * 1e3,
+          "completed": s["completed"], "failed": s["failed"],
+          "batches": stats.batches, "comm_share": s["comm_frac"],
+          "edge0_picks": dict(eng.channels[0].picks),
+          "quotas": QUOTAS_NOTE, "launches": worker_launches(eng),
+          "seconds": time.perf_counter() - t0})
+    check_served("session_processes", s, 32)
+    launches = check_worker_launches("session_processes", stages, eng,
+                                     stats.batches)
+
+    t0 = time.perf_counter()
+    sentinel = Path(__file__).resolve().parent / "build" / \
+        f"chip_smoke_crash.{time.time_ns()}"
+    sentinel.parent.mkdir(parents=True, exist_ok=True)
+    dies = DiesOnFirstCall(stages[-1], str(sentinel))
+    try:
+        with sess.serve(stages=[*stages[:-1], dies], result=res,
+                        spec=ServeSpec(backend="processes", max_retries=2,
+                                       retry_backoff=0.01)) as eng:
+            stats = eng.run_trace(sess.make_trace(32, 40.0, seed=7))
+            restarts = eng.worker_restarts
+    finally:
+        crashed = sentinel.exists()
+        sentinel.unlink(missing_ok=True)
+    s = stats.summary()
+    emit({"phase": "session_processes_crash", "chain": chain,
+          "queries": 32, "qps": 40.0, "crashed": crashed,
+          "worker_restarts": restarts, "retries": s["retries"],
+          "p99_ms": s["p99"] * 1e3, "mean_ms": s["mean"] * 1e3,
+          "completed": s["completed"], "failed": s["failed"],
+          "batches": stats.batches,
+          "launches_replacement": worker_launches(eng),
+          "seconds": time.perf_counter() - t0})
+    if not crashed or restarts != 1 or s["retries"] < 1 \
+            or (s["completed"], s["failed"]) != (32, 0):
+        raise AssertionError(f"session_processes_crash: crashed {crashed}, "
+                             f"restarts {restarts}, retries "
+                             f"{s['retries']}, completed {s['completed']}, "
+                             f"failed {s['failed']}")
+    return launches
+
+
+def process_phases(chains, threads: dict) -> dict:
+    """``transport``, then ``serve_processes`` (the qwen chain under
+    host/device/auto, text-to-img under auto) and ``session_processes``
+    on the qwen chain; ``threads``: each chain's ``serve`` summaries.
+    Returns the kernels' launches summed over the workers, by phase.  The
+    driver's cached device blocks are released before each pool, so the
+    workers' models fit beside the driver's."""
+    crossover = transport_phase()
+    qwen, t2i = chains
+    return {"serve_processes_chain": serve_processes(
+                qwen[0], qwen[1], ("host", "device", "auto"), crossover,
+                threads[qwen[0]]),
+            "serve_processes_text_to_img": serve_processes(
+                t2i[0], t2i[1], ("auto",), crossover, threads[t2i[0]]),
+            "session_processes": session_processes_phase(*qwen, crossover)}
+
+
 def serve_pipelines(fa, ms) -> tuple:
     """The two chains of the paper's services, one after the other, each
     served on the hand-built allocation (``serve``) and then through
     Camelot's loop on the same stage servers (``camelot``); at seq_len 16
     each mLSTM layer runs one chunk per batch.  Then the facade phases on
-    both chains' servers.  Returns each chain's kernel launches in the
-    two phases, and the facade phases' launches."""
+    both chains' servers, then the process backend's phases (the workers
+    rebuild the servers from their pickles).  Returns each chain's kernel
+    launches in the two phases, the facade phases' launches, and the
+    process phases' launches (summed over their workers)."""
     from repro_torch.serving import ModelStageServer
     chains = (
         ("qwen3-0.6b->qwen1.5-0.5b", (("stage0", "qwen3-0.6b", 0),
@@ -1887,7 +2139,7 @@ def serve_pipelines(fa, ms) -> tuple:
          (0, 1)),
         ("text-to-img", (("semantic-understanding", "xlstm-1.3b", 3),
                          ("image-generation", "qwen1.5-0.5b", 1)), (0,)))
-    out, live = [], []
+    out, live, threads = [], [], {}
     for chain, specs, breakdown in chains:
         stages = [ModelStageServer(name, arch, seq_len=16, seed=seed)
                   for name, arch, seed in specs]
@@ -1900,15 +2152,17 @@ def serve_pipelines(fa, ms) -> tuple:
                                             batch=4), kernels)
         camelot, profiles = camelot_chain(chain, stages, kernels,
                                           summaries["auto"])
+        threads[chain] = summaries
         out.append((served, camelot))
         live.append((chain, stages, profiles))
     qwen_stages = live[0][1]
     facade = facade_phases(live, [
         ("flash_attention_bhsd", fa, layers_of(qwen_stages, "attn")),
         ("mlstm_chunk_step", ms, layers_of(qwen_stages, "mlstm"))])
+    processes = process_phases(live, threads)
     del live, stages, qwen_stages
     gc_collect()
-    return out, facade
+    return out, facade, processes
 
 
 def main() -> int:
@@ -1958,7 +2212,7 @@ def main() -> int:
     # path, whose counts are the kernels line's ``launches``)
     launches_prefill = prefill_full_width(fa, ops, Transformer, get_config)
     launches_prefill_mlstm = prefill_xlstm(ms, ops, Transformer, get_config)
-    ((first, camelot_first), (second, camelot_second)), facade = \
+    ((first, camelot_first), (second, camelot_second)), facade, processes = \
         serve_pipelines(fa, ms)
     # the decode path: the decode kernel's count from 0 before each
     # model's timed steps; the prefills before them count the others
@@ -2000,6 +2254,9 @@ def main() -> int:
     # the facade phases' launches, by phase, for each kernel
     facade_by = {name: {phase: n[name] for phase, n in facade.items()}
                  for name in ("flash_attention_bhsd", "mlstm_chunk_step")}
+    # the process phases' launches (counted in the workers), by phase
+    processes_by = {name: {phase: n[name] for phase, n in processes.items()}
+                    for name in ("flash_attention_bhsd", "mlstm_chunk_step")}
     mlstm_row = timing_mlstm[0]           # the serving shape, L = 16
     decode_row = timing_decode[0]         # qwen3-0.6b's, B 4, Sc 2080
     ssm_row = timing_ssm[0]               # jamba's chunk at B 4
@@ -2014,6 +2271,9 @@ def main() -> int:
         + sum(facade_by["flash_attention_bhsd"].values()),
         "launches_serve": attn_serve,
         "launches_facade": facade_by["flash_attention_bhsd"],
+        "launches_processes": sum(
+            processes_by["flash_attention_bhsd"].values()),
+        "launches_processes_by_phase": processes_by["flash_attention_bhsd"],
         "launches_serve_chain": first["flash_attention_bhsd"],
         "launches_serve_text_to_img": second["flash_attention_bhsd"],
         "launches_camelot_chain": camelot_first["flash_attention_bhsd"],
@@ -2038,6 +2298,8 @@ def main() -> int:
         + sum(facade_by["mlstm_chunk_step"].values()),
         "launches_serve": second["mlstm_chunk_step"],
         "launches_facade": facade_by["mlstm_chunk_step"],
+        "launches_processes": sum(processes_by["mlstm_chunk_step"].values()),
+        "launches_processes_by_phase": processes_by["mlstm_chunk_step"],
         "launches_serve_chain": first["mlstm_chunk_step"],
         "launches_camelot_chain": camelot_first["mlstm_chunk_step"],
         "launches_camelot_text_to_img": camelot_second["mlstm_chunk_step"],

@@ -197,9 +197,11 @@ class CamelotSession:
         models.  ``stages`` maps node i to its stage server; omitted,
         servers are built from each node's model-zoo ``arch`` with the
         servers' own ``reduced``/``device`` (full width on the card by
-        default).  ``backend`` picks threads (default; the process backend
-        is not ported and raises); a full ``ServeSpec`` overrides all
-        backend/fault knobs at once."""
+        default).  ``backend`` picks threads (default) or worker
+        processes (each stage server rebuilt in every worker from its
+        pickle; payloads hand off through the workers' arenas, by CUDA
+        IPC on the card); a full ``ServeSpec`` overrides all backend/fault
+        knobs at once.  Close the engine to stop a process pool."""
         from repro_torch.serving import ModelStageServer, PipelineEngine
         res = self._resolve_result(result)
         assert res.feasible and res.allocation.placement is not None, \
@@ -720,8 +722,8 @@ class MultiServiceSession:
         per-tenant slices against one shared worker pool.  Omitted
         ``tenant_stages`` are built as in ``CamelotSession.serve`` (full
         width on the card unless ``reduced``/``device`` say otherwise).
-        ``backend`` picks threads (default; the process backend is not
-        ported and raises); a full ``ServeSpec`` overrides all
+        ``backend`` picks threads (default) or worker processes, as in
+        ``CamelotSession.serve``; a full ``ServeSpec`` overrides all
         backend/fault knobs at once."""
         from repro_torch.serving import ModelStageServer, MultiTenantEngine
         res = self._resolve_result(result)

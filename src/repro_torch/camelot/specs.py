@@ -226,13 +226,9 @@ class ServeSpec:
     ``PipelineEngine``/``MultiTenantEngine``: ``backend`` picks the
     thread pool (default) or the worker-process pool;
     ``comm_mechanism`` pins the per-edge hand-off for A/B runs ("auto"
-    routes by the comm crossover); the fault knobs (``max_retries``,
-    ``retry_backoff``, ``deadline``) are the engine's.  The spec is the
-    reference's data, process knobs included, but the port's engine
-    serves only threads: ``backend="processes"`` reaches it and raises
-    ``NotImplementedError`` (ROADMAP.md Queue A 2), and the process
-    knobs (``start_method``, ``shm_*``, ``supervise_timeout``) are kept
-    as data only.
+    routes by the comm crossover); ``start_method``/``shm_*``/
+    ``supervise_timeout`` are the worker-process pool's; the fault knobs
+    (``max_retries``, ``retry_backoff``, ``deadline``) are the engine's.
     """
     backend: str = "threads"               # "threads" | "processes"
     comm_mechanism: str = "auto"           # "auto" | "device" | "host"
@@ -253,12 +249,15 @@ class ServeSpec:
                 f"unknown comm_mechanism {self.comm_mechanism!r}")
 
     def engine_kwargs(self) -> dict:
-        """The knobs the port's engine takes, in constructor keyword
-        form."""
+        """The knobs in engine-constructor keyword form."""
         return {
             "backend": self.backend,
             "comm_mechanism": self.comm_mechanism,
             "batch_timeout": self.batch_timeout,
+            "start_method": self.start_method,
+            "shm_slots": self.shm_slots,
+            "shm_slot_bytes": self.shm_slot_bytes,
+            "supervise_timeout": self.supervise_timeout,
             "max_retries": self.max_retries,
             "retry_backoff": self.retry_backoff,
             "deadline": self.deadline,

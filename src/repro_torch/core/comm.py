@@ -12,7 +12,9 @@ payload (the rule the execution core shares with the simulator);
 ``DeviceHandoff``/``HostStagedChannel`` are the live mechanisms on torch
 tensors and ``EdgeChannel`` routes each real payload between them.  Within
 one process on one card the global-memory hand-off is the CUDA tensor
-itself, passed by reference.
+itself, passed by reference; between worker processes it is a slot of a
+device arena mapped by CUDA IPC (``repro_torch.serving.transport``), and
+``EdgeChannel.record`` counts what the workers moved.
 """
 from __future__ import annotations
 
@@ -170,6 +172,18 @@ class EdgeChannel:
         if mech == GLOBAL_MEMORY:
             return self.device_handoff.send(tensor)
         return self.host_staged.send(tensor)
+
+    def record(self, mechanism: str, nbytes: int) -> None:
+        """Stats-only accounting for a transfer executed ELSEWHERE — the
+        process serving backend moves payloads in worker processes (arena
+        hand-off / pickle queue) and reports the pick here, so per-edge
+        mechanism counters read identically across backends."""
+        self.picks[mechanism] += 1
+        if mechanism == GLOBAL_MEMORY:
+            self.device_handoff.transfers += 1
+        else:
+            self.host_staged.transfers += 1
+            self.host_staged.bytes_moved += int(nbytes) * 2
 
     @property
     def transfers(self) -> int:

@@ -16,15 +16,28 @@ the given stage servers).  Fan-out sends one payload per out-edge; fan-in
 waits on the core's join barrier and feeds the consumer a deterministic,
 branch-order-independent combination of the predecessor outputs.
 
-Retry backoff is driver-scheduled: a failing batch is requeued with a
-timed wake (``retry_backoff × 2^attempt``) instead of sleeping inside a
-worker slot, so a backing-off batch never idles an otherwise-free
-instance.  ``apply_allocation`` makes ``CamelotRuntime.reallocate``
-applicable to a running engine: allocations swap between batches while
-in-flight work drains.
+Two execution backends share this driver (``backend=``):
 
-Only ``backend="threads"`` is ported; the worker-process backend with CUDA
-IPC hand-off is a later item of ROADMAP.md (Queue A, process backend).
+  * ``"threads"`` (default): stage instances dispatch onto one shared
+    ``ThreadPoolExecutor``;
+  * ``"processes"``: stage instances run in a persistent worker-process
+    pool (``repro_torch.serving.workers``, one worker per placed device,
+    spawned once and reused across traces), and inter-stage payloads
+    travel over ``repro_torch.serving.transport`` — above the
+    ``CommModel`` crossover through an arena written once and mapped
+    zero-copy (on the card a device buffer shared by CUDA IPC, the
+    paper's global-memory mechanism between processes; on the CPU a host
+    shared-memory ring), below it pickled through the queues
+    (host-staged).  The scheduling state machine stays here in the
+    driver; a crashed worker process is detected, restarted, and its
+    in-flight batches replayed within the retry budget.
+
+Retry backoff is driver-scheduled on both backends: a failing batch is
+requeued with a timed wake (``retry_backoff × 2^attempt``) instead of
+sleeping inside a worker slot, so a backing-off batch never idles an
+otherwise-free instance.  ``apply_allocation`` makes
+``CamelotRuntime.reallocate`` applicable to a running engine: allocations
+swap between batches while in-flight work drains.
 """
 from __future__ import annotations
 
@@ -32,27 +45,26 @@ import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from heapq import heappop, heappush
 from itertools import count
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig, get_config
-from repro_torch.core.comm import CommModel, EdgeChannel
+from repro_torch.core.comm import (GLOBAL_MEMORY, HOST_STAGED, CommModel,
+                                   EdgeChannel)
 from repro_torch.core.exec import (BatchingPolicy, ExecCore, ReadyBatch,
                                    StageInstance, default_allocation)
 from repro_torch.core.qos import QoSTracker
 from repro_torch.core.types import RTX_2080TI, Allocation, ServiceGraph
 from repro_torch.models import Transformer, from_jax_params
 from repro_torch.models.common import resolve_device
-
-PROCESSES_NOT_PORTED = (
-    "backend='processes' is not ported yet: it is ROADMAP.md Queue A "
-    "item 2, 'Process backend over CUDA IPC' (spawned workers with CUDA "
-    "IPC hand-off); use backend='threads'")
+from repro_torch.serving.transport import CUDA_IPC, SHM, PayloadRef
+from repro_torch.serving.workers import (WorkerPool, WorkerSupervisor,
+                                         stage_blob)
 
 
 @dataclass
@@ -205,7 +217,9 @@ class PipelineEngine:
     node runs; omitted, one instance per node.  ``comm_mechanism``: "auto"
     routes each edge payload via the crossover rule; "device"/"host" pin
     the mechanism for A/B comparisons.  ``max_retries``/``retry_backoff``/
-    ``deadline`` are the fault knobs of ``MultiTenantEngine``.
+    ``deadline`` are the fault knobs, ``backend``/``start_method``/
+    ``shm_slots``/``shm_slot_bytes``/``supervise_timeout`` the
+    execution-backend knobs — see ``MultiTenantEngine``.
     """
 
     def __init__(self, stages: Sequence, comm_mechanism: str = "auto",
@@ -216,7 +230,9 @@ class PipelineEngine:
                  graph: Optional[ServiceGraph] = None,
                  max_retries: int = 0, retry_backoff: float = 0.0,
                  deadline: Optional[float] = None,
-                 backend: str = "threads"):
+                 backend: str = "threads", start_method: str = "spawn",
+                 shm_slots: int = 32, shm_slot_bytes: int = 1 << 20,
+                 supervise_timeout: float = 5.0):
         self.stages = list(stages)
         if graph is None:
             graph = ServiceGraph.chain(
@@ -236,7 +252,9 @@ class PipelineEngine:
             comm_mechanism=comm_mechanism, batch_timeout=batch_timeout,
             comm_model=self.comm_model, qos_targets=[qos_target],
             max_retries=max_retries, retry_backoff=retry_backoff,
-            deadline=deadline, backend=backend)
+            deadline=deadline, backend=backend, start_method=start_method,
+            shm_slots=shm_slots, shm_slot_bytes=shm_slot_bytes,
+            supervise_timeout=supervise_timeout)
         self.channels = self._inner.tenants[0].channels
 
     @property
@@ -247,7 +265,13 @@ class PipelineEngine:
     def worker_restarts(self) -> int:
         return self._inner.worker_restarts
 
+    @property
+    def worker_reports(self) -> Dict[int, dict]:
+        return self._inner.worker_reports
+
     def close(self) -> None:
+        """Release the worker-process pool (processes backend); no-op for
+        threads."""
         self._inner.close()
 
     def __enter__(self) -> "PipelineEngine":
@@ -291,16 +315,24 @@ def make_trace(n: int, qps: float, seq_len: int, vocab: int,
             for i in range(n)]
 
 
-def _stack_tokens(tokens_list: List[np.ndarray], batch_size: int,
-                  device) -> torch.Tensor:
-    """Pad a partial batch to the stage's fixed batch size with zero rows
-    and copy it to ``device`` (the H2D copy of the batch's tokens)."""
+def _stack_tokens_np(tokens_list: List[np.ndarray],
+                     batch_size: int) -> np.ndarray:
+    """Pad a partial batch to the stage's fixed batch size with zero rows,
+    staying in host memory."""
     stacked = np.stack(tokens_list)
     if len(tokens_list) < batch_size:
         pad = np.zeros((batch_size - len(tokens_list),) + stacked.shape[1:],
                        stacked.dtype)
         stacked = np.concatenate([stacked, pad])
-    return torch.from_numpy(stacked).to(device)
+    return stacked
+
+
+def _stack_tokens(tokens_list: List[np.ndarray], batch_size: int,
+                  device) -> torch.Tensor:
+    """``_stack_tokens_np`` copied to ``device`` (the H2D copy of the
+    batch's tokens) — the threads backend hands stages tensors."""
+    return torch.from_numpy(_stack_tokens_np(tokens_list,
+                                             batch_size)).to(device)
 
 
 def _fanin_combine(stages: Sequence, node: int,
@@ -373,13 +405,25 @@ class _RetryQueue:
         return self._attempts.pop((ti, id(rb)), 0)
 
 
+@dataclass
+class _InFlight:
+    """Driver-side record of one batch executing in a worker process."""
+    ti: int
+    inst: StageInstance
+    rb: ReadyBatch
+    attempt: int
+    device: int
+    input_refs: List = field(default_factory=list)
+
+
 class MultiTenantEngine:
-    """N tenant service graphs co-served from ONE shared thread pool.
+    """N tenant service graphs co-served from ONE shared worker pool.
 
     Each tenant gets its own ``ExecCore`` (admission, batching, ready
     queues against its slice of the joint ``Placement``) and its own
-    per-edge channels; every dispatch lands in one ``ThreadPoolExecutor``
-    sized by the total placed instance count.  ``apply_allocations``
+    per-edge channels; every dispatch lands in one shared pool — a
+    ``ThreadPoolExecutor`` sized by the total placed instance count, or
+    the worker processes of the placed devices.  ``apply_allocations``
     swaps all tenants' allocations between batches
     (``MultiTenantRuntime`` pushes the service-scoped slices of each joint
     re-solve here).
@@ -395,8 +439,23 @@ class MultiTenantEngine:
       arrival are abandoned at admission (counted failed), so a degraded
       pool sheds backlog instead of serving un-meetable requests.
 
-    ``backend`` must be ``"threads"``; the process backend is not ported,
-    so ``worker_restarts`` stays 0.
+    Backend knobs:
+
+    * ``backend`` — ``"threads"`` (default) or ``"processes"`` (worker-
+      process pool + arena transport; requires picklable stage servers;
+      stages on the card get device arenas shared by CUDA IPC);
+    * ``start_method`` — multiprocessing start method (``"spawn"``, which
+      CUDA needs in the workers);
+    * ``shm_slots``/``shm_slot_bytes`` — per-worker arena ring geometry
+      (a full ring backpressures onto the queue mechanism);
+    * ``supervise_timeout`` — heartbeat silence after which a worker
+      process that still holds tasks is declared hung and restarted
+      (a process that DIED is restarted as soon as it is seen);
+      ``worker_restarts`` counts the restarts.
+
+    ``close()`` shuts the pool down and keeps the workers' exit reports
+    (their stage servers' ``calls`` and kernels' ``LAUNCHES``) in
+    ``worker_reports``, by worker.
     """
 
     def __init__(self, tenant_stages: Sequence[Sequence],
@@ -407,10 +466,10 @@ class MultiTenantEngine:
                  qos_targets: Optional[Sequence[float]] = None,
                  max_retries: int = 0, retry_backoff: float = 0.0,
                  deadline: Optional[float] = None,
-                 backend: str = "threads"):
-        if backend == "processes":
-            raise NotImplementedError(PROCESSES_NOT_PORTED)
-        if backend != "threads":
+                 backend: str = "threads", start_method: str = "spawn",
+                 shm_slots: int = 32, shm_slot_bytes: int = 1 << 20,
+                 supervise_timeout: float = 5.0):
+        if backend not in ("threads", "processes"):
             raise ValueError(f"unknown backend {backend!r}")
         if comm_mechanism not in ("auto", "device", "host"):
             raise ValueError(f"comm_mechanism {comm_mechanism!r}")
@@ -440,12 +499,27 @@ class MultiTenantEngine:
         self._pending_allocs: Optional[List[Allocation]] = None
         self._alloc_lock = threading.Lock()
         self.swaps = 0
-        self.worker_restarts = 0
+        # process-backend state: the pool is spawned lazily on the first
+        # trace (workers warm up at spawn) and reused across traces
         self.backend = backend
         self.comm_mechanism = comm_mechanism
+        self.start_method = start_method
+        self.shm_slots = int(shm_slots)
+        self.shm_slot_bytes = int(shm_slot_bytes)
+        self.supervise_timeout = float(supervise_timeout)
+        self.worker_restarts = 0
+        self.worker_reports: Dict[int, dict] = {}
+        self._pool: Optional[WorkerPool] = None
+        self._supervisor: Optional[WorkerSupervisor] = None
 
     def close(self) -> None:
-        """Nothing outlives a trace on the threads backend."""
+        """Shut down the worker-process pool (processes backend), keeping
+        its exit reports in ``worker_reports``; no-op for threads.  The
+        engine stays usable — the next trace respawns."""
+        if self._pool is not None:
+            self.worker_reports = self._pool.close()
+            self._pool = None
+            self._supervisor = None
 
     def __enter__(self) -> "MultiTenantEngine":
         return self
@@ -469,7 +543,7 @@ class MultiTenantEngine:
             self._pending_allocs = allocations
 
     def _apply_pending(self, cores: List[ExecCore],
-                       ex: ThreadPoolExecutor) -> None:
+                       ex: Optional[ThreadPoolExecutor]) -> None:
         with self._alloc_lock:
             allocs = self._pending_allocs
             self._pending_allocs = None
@@ -480,9 +554,11 @@ class MultiTenantEngine:
             t.batch_size = alloc.stages[0].batch
             core.batching.batch_size = t.batch_size
             core.reset_instances(alloc.placement)
-        # a swap to more instances grows the shared pool
-        total = sum(len(c.instances) for c in cores)
-        ex._max_workers = max(ex._max_workers, total)
+        # a swap to more instances grows the shared thread pool (the
+        # process pool grows by device in ``_ensure_pool``)
+        if ex is not None:
+            total = sum(len(c.instances) for c in cores)
+            ex._max_workers = max(ex._max_workers, total)
         self.swaps += 1
 
     # ---- trace replay --------------------------------------------------
@@ -492,6 +568,8 @@ class MultiTenantEngine:
         one ``ServeStats`` per tenant (each against its own QoS target)."""
         if len(traces) != len(self.tenants):
             raise ValueError("one trace per tenant")
+        if self.backend == "processes":
+            return self._run_traces_processes(traces)
         stats = [ServeStats(qos=QoSTracker(qt)) for qt in self.qos_targets]
         for t in self.tenants:
             for st in t.stages:
@@ -560,6 +638,218 @@ class MultiTenantEngine:
                         break
         return stats
 
+    # ---- process backend ----------------------------------------------
+
+    def _ensure_pool(self, cores: List[ExecCore], now: float) -> None:
+        """Spawn the worker pool on first use (workers warm up in their
+        own processes) and add workers for any newly placed device.  Stages
+        on the card give every worker a device arena."""
+        if self._pool is None:
+            force = (None if self.comm_mechanism == "auto"
+                     else self.comm_mechanism)
+            on_card = any(
+                getattr(st, "device", None) is not None
+                and torch.device(st.device).type == "cuda"
+                for t in self.tenants for st in t.stages)
+            self._pool = WorkerPool(
+                stage_blob([t.stages for t in self.tenants]),
+                [t.batch_size for t in self.tenants],
+                self.comm_model.crossover_bytes(), force=force,
+                shm_ok=self.comm_model.global_memory_enabled,
+                start_method=self.start_method, slots=self.shm_slots,
+                slot_bytes=self.shm_slot_bytes, on_card=on_card)
+            self._supervisor = WorkerSupervisor(
+                self._pool, heartbeat_timeout=self.supervise_timeout)
+        devices = sorted({inst.device for core in cores
+                          for inst in core.instances})
+        for d in self._pool.ensure(devices):
+            self._supervisor.track(d, now)
+
+    def _run_traces_processes(self, traces: Sequence[List[Query]]) \
+            -> List[ServeStats]:
+        """The multi-process twin of the threads driver loop.
+
+        Scheduling (admission, deadlines, batching, dispatch, joins, QoS)
+        is the SAME ``ExecCore`` flow; what differs is execution — batches
+        run in worker processes keyed by placed device — and transport:
+        stage outputs stay put in the producer's arena and only a
+        ``PayloadRef`` travels through the driver when the payload is
+        above the comm crossover (queue pickling below it).  The driver is
+        the single freer of arena slots: a producer's output slot is
+        pinned once per consumer edge and freed when the last consuming
+        batch reaches a terminal state, so retries and out-of-order joins
+        can always re-map their inputs."""
+        stats = [ServeStats(qos=QoSTracker(qt)) for qt in self.qos_targets]
+        cores = [ExecCore(t.graph, t.alloc.placement,
+                          BatchingPolicy(t.batch_size, self.batch_timeout),
+                          comm=self.comm_model)
+                 for t in self.tenants]
+        self._ensure_pool(cores, 0.0)
+        pool, sup = self._pool, self._supervisor
+        retry = _RetryQueue()
+        fid_gen = count()
+        inflight: Dict[int, _InFlight] = {}
+        # slot refcounts: ref.key() -> [consumers_left, ref]; a bid's live
+        # refs are also indexed by (ti, bid) so abandonment can reclaim
+        # slots whose consumers will never run
+        pins: Dict[Tuple[str, int], List] = {}
+        bid_refs: Dict[Tuple[int, int], Set[Tuple[str, int]]] = {}
+
+        def unpin(refs: List[PayloadRef]) -> None:
+            for ref in refs:
+                ent = pins.get(ref.key())
+                if ent is None:            # already reclaimed via its bid
+                    continue
+                ent[0] -= 1
+                if ent[0] <= 0:
+                    del pins[ref.key()]
+                    pool.free(ref)
+
+        def drop_bid(ti: int, bid: int) -> None:
+            for key in bid_refs.pop((ti, bid), ()):
+                ent = pins.pop(key, None)
+                if ent is not None:
+                    pool.free(ent[1])
+
+        def fail_or_retry(fl: _InFlight, now: float) -> None:
+            core = cores[fl.ti]
+            if fl.rb.bid in core._abandoned:
+                return
+            if self._fail_or_retry(fl.ti, fl.rb, fl.attempt, core,
+                                   stats[fl.ti], retry, now):
+                return                     # replay re-maps the input refs
+            unpin(fl.input_refs)
+            drop_bid(fl.ti, fl.rb.bid)
+
+        idx = [0] * len(self.tenants)
+        lens = [len(tr) for tr in traces]
+        # workers (re-)tracked per run: supervisor heartbeats are
+        # trace-relative times
+        for d in pool.devices():
+            sup.track(d, 0.0)
+        start = time.perf_counter()
+        while any(i < n for i, n in zip(idx, lens)) or inflight \
+                or retry or any(c.has_work() for c in cores):
+            now = time.perf_counter() - start
+            self._apply_pending(cores, None)
+            self._ensure_pool(cores, now)
+            # worker supervision: a dead/hung worker process is replaced
+            # and its in-flight batches replayed within the retry budget
+            for d in sup.dead_workers(now):
+                self.worker_restarts += 1
+                for fid in sorted(sup.restart(d, now)):
+                    fl = inflight.pop(fid, None)
+                    if fl is None:
+                        continue
+                    cores[fl.ti].release(fl.inst, busy_for=0.0)
+                    fail_or_retry(fl, now)
+            self._requeue_due(retry, cores, now)
+            for ti, (t, core, tr) in enumerate(
+                    zip(self.tenants, cores, traces)):
+                while idx[ti] < lens[ti] and tr[idx[ti]].arrival <= now:
+                    core.admit(tr[idx[ti]], tr[idx[ti]].arrival)
+                    idx[ti] += 1
+                if self.deadline is not None and core.pending:
+                    keep = [(a, q) for a, q in core.pending
+                            if now - a <= self.deadline]
+                    n_drop = len(core.pending) - len(keep)
+                    if n_drop:
+                        core.pending = keep
+                        stats[ti].failed += n_drop
+                for rb in core.form_batches(now):
+                    # host-resident stacking: the worker moves it to its
+                    # stage's device
+                    rb.data = _stack_tokens_np(
+                        [q.tokens for q in rb.items], t.batch_size)
+                for inst, rb in core.dispatch(now):
+                    fid = next(fid_gen)
+                    refs = [v for v in (rb.inputs or {}).values()
+                            if isinstance(v, PayloadRef)]
+                    inflight[fid] = _InFlight(ti, inst, rb,
+                                              retry.take(ti, rb),
+                                              inst.device, refs)
+                    if rb.inputs is not None:
+                        task = (fid, ti, rb.stage, None, dict(rb.inputs),
+                                inflight[fid].attempt)
+                    else:
+                        task = (fid, ti, rb.stage, rb.data, None,
+                                inflight[fid].attempt)
+                    pool.submit(inst.device, task)
+            wake = [traces[ti][idx[ti]].arrival
+                    for ti in range(len(self.tenants))
+                    if idx[ti] < lens[ti]]
+            wake += [d for d in (c.batch_deadline() for c in cores)
+                     if d is not None]
+            rw = retry.next_wake()
+            if rw is not None:
+                wake.append(rw)
+            timeout = (min(wake) - now) if wake else 0.05
+            timeout = min(max(timeout, 0.0005), 0.05)
+            for ev in pool.poll(timeout):
+                self._complete_proc(ev, cores, stats, start, inflight,
+                                    pins, bid_refs, unpin, drop_bid,
+                                    fail_or_retry)
+        return stats
+
+    def _complete_proc(self, ev, cores: List[ExecCore],
+                       stats: List[ServeStats], start: float,
+                       inflight: Dict[int, _InFlight],
+                       pins: Dict, bid_refs: Dict,
+                       unpin, drop_bid, fail_or_retry) -> None:
+        """Fold one worker completion into the scheduling state — the
+        process-backend mirror of ``_complete`` plus slot-lifecycle and
+        mechanism accounting (each hand-off is recorded on its edge's
+        ``EdgeChannel`` so per-edge stats read identically across
+        backends)."""
+        pool, sup = self._pool, self._supervisor
+        wid, fid, payload, dt, err, mech, nbytes, t_comm = ev
+        now = time.perf_counter() - start
+        sup.beat(wid, now)
+        fl = inflight.pop(fid, None)
+        if fl is None:
+            # completion from a replaced worker generation — the batch was
+            # already replayed or failed; reclaim an orphan arena payload
+            if isinstance(payload, PayloadRef):
+                pool.free(payload)
+            return
+        ti, rb = fl.ti, fl.rb
+        t = self.tenants[ti]
+        core = cores[ti]
+        core.release(fl.inst, busy_for=dt)
+        if err is not None:
+            fail_or_retry(fl, now)
+            return
+        if rb.bid in core._abandoned:      # a sibling branch failed
+            if isinstance(payload, PayloadRef):
+                pool.free(payload)
+            return
+        stats[ti].compute_time += dt
+        stats[ti].comm_time += t_comm
+        # this batch is terminal for its inputs: release their slot pins
+        unpin(fl.input_refs)
+        u = rb.stage
+        succs = core.succs[u]
+        if succs:
+            if isinstance(payload, PayloadRef):
+                pins[payload.key()] = [len(succs), payload]
+                bid_refs.setdefault((ti, rb.bid), set()).add(payload.key())
+            mech_name = GLOBAL_MEMORY if mech in (SHM, CUDA_IPC) \
+                else HOST_STAGED
+            for v in succs:
+                t.channels[(u, v)].record(mech_name, nbytes)
+                # joined batches keep raw inputs: the CONSUMER's worker
+                # resolves refs and runs the fan-in combine process-side
+                core.deliver(u, v, rb.bid, rb.items, now, data=payload)
+        else:
+            if isinstance(payload, PayloadRef):
+                pool.free(payload)
+            if core.complete_exit(rb.bid, u):
+                for q in rb.items:
+                    q.done = now
+                    stats[ti].qos.record(now - q.arrival)
+                stats[ti].batches += 1
+                drop_bid(ti, rb.bid)
+
     # ---- internals -----------------------------------------------------
 
     def _worker(self, ti: int, inst: StageInstance, rb: ReadyBatch,
@@ -577,19 +867,21 @@ class MultiTenantEngine:
 
     def _fail_or_retry(self, ti: int, rb: ReadyBatch, attempt: int,
                        core: ExecCore, stats: ServeStats,
-                       retry: _RetryQueue, now: float) -> None:
-        """Schedule a timed requeue while the retry budget lasts, else
-        count the batch failed and abandon it, so its join/exit
-        bookkeeping cannot strand the trace."""
+                       retry: _RetryQueue, now: float) -> bool:
+        """Shared failure policy for both backends: schedule a timed
+        requeue while the retry budget lasts, else count the batch failed
+        and abandon it, so its join/exit bookkeeping cannot strand the
+        trace.  Returns True when a retry was scheduled."""
         if rb.bid in core._abandoned:
-            return
+            return False
         if attempt < self.max_retries:
             stats.retries += 1
             retry.schedule(now + self.retry_backoff * (2 ** attempt),
                            ti, rb, attempt + 1)
-            return
+            return True
         stats.failed += len(rb.items)
         core.abandon(rb.bid)
+        return False
 
     def _requeue_due(self, retry: _RetryQueue, cores: List[ExecCore],
                      now: float) -> None:

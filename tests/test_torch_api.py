@@ -192,8 +192,8 @@ def test_qos_spec_roundtrip_and_load_model():
 
 
 def test_serve_spec_roundtrip_and_engine_kwargs():
-    """The ServeSpec is the reference's data; the port's engine takes the
-    threads knobs and refuses the process backend when it reaches it."""
+    """The ServeSpec is the reference's data, and its engine knobs are the
+    reference's, the process backend's included."""
     def run(pk):
         s = pk.cm.ServeSpec(backend="processes", max_retries=2,
                             retry_backoff=0.1, deadline=3.0)
@@ -202,11 +202,11 @@ def test_serve_spec_roundtrip_and_engine_kwargs():
             pk.cm.ServeSpec(backend="gpu")
         return s.to_dict()
     both(run)
-    kw = port_camelot.ServeSpec(max_retries=2).engine_kwargs()
-    ref_kw = ref_camelot.ServeSpec(max_retries=2).engine_kwargs()
-    assert kw == {k: v for k, v in ref_kw.items()
-                  if k not in ("start_method", "shm_slots", "shm_slot_bytes",
-                               "supervise_timeout")}
+    for kw in (dict(max_retries=2),
+               dict(backend="processes", shm_slots=8, shm_slot_bytes=4096,
+                    supervise_timeout=7.5, start_method="spawn")):
+        assert port_camelot.ServeSpec(**kw).engine_kwargs() == \
+            ref_camelot.ServeSpec(**kw).engine_kwargs()
 
 
 # --------------------------------------------------------------------------
@@ -642,8 +642,8 @@ def test_session_serve_matches_reference_query_for_query():
 
 def test_session_serve_builds_reduced_stages_on_the_cpu():
     """``serve()`` with no stage servers builds the port's own, here
-    reduced on the CPU, and completes the trace; the process backend
-    reaches the engine and is refused there."""
+    reduced on the CPU, and completes the trace; the same servers serve
+    it on the process backend too, in workers that rebuild them."""
     s = spec(PKGS["port"], "img-to-img")
     sess = port_camelot.CamelotSession(s, port_camelot.ClusterSpec(
         devices=2), batch=4)
@@ -654,9 +654,12 @@ def test_session_serve_builds_reduced_stages_on_the_cpu():
     assert all(st.device.type == "cpu" for st in eng.stages)
     stats = eng.run_trace(sess.make_trace(6, qps=30.0, seed=1))
     assert stats.summary()["completed"] == 6
-    with pytest.raises(NotImplementedError, match="CUDA IPC"):
-        sess.serve(stages=eng.stages, result=res,
-                   spec=port_camelot.ServeSpec(backend="processes"))
+    with sess.serve(stages=eng.stages, result=res,
+                    spec=port_camelot.ServeSpec(backend="processes")) as peng:
+        pstats = peng.run_trace(sess.make_trace(6, qps=30.0, seed=1))
+        assert peng.backend == "processes"
+    assert pstats.summary()["completed"] == 6
+    assert pstats.summary()["failed"] == 0
 
 
 def test_multi_session_serve_builds_reduced_stages_on_the_cpu():

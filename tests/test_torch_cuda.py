@@ -1,10 +1,13 @@
-"""The port on the card: the CUDA kernels against their plain versions, and
-the entry points' default device.  Every test here needs a CUDA device and
+"""The port on the card: the CUDA kernels against their plain versions, the
+entry points' default device, and the process backend's device arena
+(CUDA IPC between spawned processes).  Every test here needs a CUDA device and
 ``nvcc`` and skips without them.  The file imports neither jax nor the JAX
 package, so it also runs on a machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +17,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import mlstm_scan, ops
 from repro_torch.kernels import ssm_scan
+from repro_torch.serving.transport import DeviceArena
 
 pytestmark = pytest.mark.cuda
 
@@ -422,3 +426,127 @@ def test_cuda_camelot_session_serves_on_the_card(card):
     s = stats.summary()
     assert s["completed"] == 8 and s["failed"] == 0
     assert fa.LAUNCHES - before == layers * (stats.batches + 1)
+
+
+# ---- the process backend's device arena: CUDA IPC between processes -------
+
+def _arena_consumer(arena, refs, out_q):
+    """A spawned consumer: map the driver's device arena by CUDA IPC and
+    hand each slot's bytes back (plain bytes: a CPU tensor would be
+    shared through a descriptor that dies with this process)."""
+    out_q.put([_raw(arena.get(r)) for r in refs])
+
+
+def _raw(t: torch.Tensor) -> bytes:
+    return t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes()
+
+
+def _arena_producer(arena, n, die, out_q):
+    """A spawned worker: write ``n`` payloads into the driver's arena
+    (None once the ring is full) and post the refs; with ``die``, exit
+    at once without releasing anything."""
+    refs = [arena.try_put(torch.full((256,), i, dtype=torch.int32,
+                                     device="cuda")) for i in range(n)]
+    out_q.put(refs)
+    if die:
+        out_q.close()
+        out_q.join_thread()         # the refs are in the pipe
+        os._exit(3)
+
+
+def _spawned(target, *args):
+    """Run ``target(*args, out_q)`` in a spawned process; its one message
+    and its exit code."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    out_q = ctx.Queue()
+    proc = ctx.Process(target=target, args=(*args, out_q))
+    proc.start()
+    msg = out_q.get(timeout=120)
+    proc.join(timeout=60)
+    assert not proc.is_alive()
+    return msg, proc.exitcode
+
+
+def test_cuda_device_arena_hands_off_to_a_spawned_consumer(card):
+    arena = DeviceArena(slots=4, slot_bytes=1 << 16)
+    try:
+        payloads = [
+            torch.randn(4, 128, generator=card,
+                        device="cuda").to(torch.bfloat16),
+            torch.randint(0, 1000, (4,), generator=card, device="cuda",
+                          dtype=torch.int32),
+            torch.randn(64, 64, generator=card, device="cuda")[:, ::2]]
+        refs = [arena.try_put(t) for t in payloads]
+        got, code = _spawned(_arena_consumer, arena, refs)
+        assert code == 0
+        assert [r.shape for r in refs] == [tuple(t.shape) for t in payloads]
+        assert got == [_raw(t) for t in payloads]
+    finally:
+        arena.close()
+        arena.unlink()
+
+
+def test_cuda_device_arena_backpressures_a_full_ring(card):
+    arena = DeviceArena(slots=3, slot_bytes=1024)
+    try:
+        refs, code = _spawned(_arena_producer, arena, 4, False)
+        assert code == 0
+        assert [r is None for r in refs] == [False, False, False, True]
+        assert arena.in_use() == 3
+        for i, r in enumerate(refs[:3]):
+            assert torch.equal(arena.get(r).cpu(),
+                               torch.full((256,), i, dtype=torch.int32))
+        arena.free(refs[1])
+        again, _ = _spawned(_arena_producer, arena, 1, False)
+        assert again[0].slot == refs[1].slot
+    finally:
+        arena.close()
+        arena.unlink()
+
+
+def test_cuda_slot_of_a_dead_worker_stays_readable(card):
+    """The buffer is the driver's: what a worker published before it died
+    is read by another worker afterwards."""
+    arena = DeviceArena(slots=4, slot_bytes=1024)
+    try:
+        refs, code = _spawned(_arena_producer, arena, 2, True)
+        assert code == 3
+        got, code = _spawned(_arena_consumer, arena, refs)
+        assert code == 0
+        assert got == [_raw(torch.full((256,), i, dtype=torch.int32))
+                       for i in range(2)]
+    finally:
+        arena.close()
+        arena.unlink()
+
+
+def test_cuda_processes_backend_hands_off_by_cuda_ipc(card):
+    """Reduced qwen stages on the card, one worker per stage: under
+    "device" every edge pick is global-memory (the workers' device
+    arenas), all queries complete, and the workers' exit reports count
+    one attention launch per layer for every batch and every warm-up."""
+    from repro_torch.core.comm import GLOBAL_MEMORY
+    from repro_torch.core.types import Allocation, Placement, StageAlloc
+    from repro_torch.serving import ModelStageServer, PipelineEngine, \
+        make_trace
+    stages = [ModelStageServer(f"s{i}", arch, seq_len=16, seed=i,
+                               reduced=True)
+              for i, arch in enumerate(("qwen3-0.6b", "qwen1.5-0.5b"))]
+    alloc = Allocation(stages=[StageAlloc(1, 0.5, 4), StageAlloc(1, 0.5, 4)],
+                       placement=Placement(per_stage=[[(0, 0.5)],
+                                                      [(1, 0.5)]]))
+    with PipelineEngine(stages, comm_mechanism="device", qos_target=30.0,
+                        batch_timeout=0.5, allocation=alloc,
+                        backend="processes") as eng:
+        stats = eng.run_trace(make_trace(8, qps=1e6, seq_len=16,
+                                         vocab=stages[0].cfg.vocab_size,
+                                         seed=2))
+        picks = dict(eng.channels[0].picks)
+    s = stats.summary()
+    assert (s["completed"], s["failed"]) == (8, 0)
+    assert picks == {GLOBAL_MEMORY: stats.batches, "host-staged": 0}
+    layers = sum(st.cfg.block_pattern.count("attn") * st.cfg.num_superblocks
+                 for st in stages)
+    launched = sum(r["launches"]["flash_attention_bhsd"]
+                   for r in eng.worker_reports.values())
+    assert launched == layers * (stats.batches + 2)

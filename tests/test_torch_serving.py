@@ -110,13 +110,6 @@ def test_engine_consumes_allocation_with_placement(stages):
     assert eng.channels[0].picks[HOST_STAGED] > 0
 
 
-def test_processes_backend_not_ported(stages):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PipelineEngine(stages, backend="processes")
-    with pytest.raises(NotImplementedError, match="CUDA IPC"):
-        MultiTenantEngine([stages], [None], [None], backend="processes")
-
-
 def _fp32_pair(arch, seed=0):
     """The reference's stage server with its parameters cast to fp32, and
     the port's server holding the same parameters."""
