@@ -6,7 +6,9 @@ Phases, each printing one line per case:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. the build of the CUDA kernels (nvcc, sm_90a) and its seconds;
   3. every kernel against its plain PyTorch version on the card, at the
-     serving path's shapes and at ragged/odd ones (max error per case;
+     serving path's shapes, at whisper-medium's unmasked encoder (S 1500)
+     and cross-attention (Sq 16 and 1 over 1,500 keys) and at ragged/odd
+     ones (max error per case;
      attention in bf16, the tensor-core kernel, and in fp32, the exact
      kernel, each launching once per call, and on strided (B, S, H, hd)
      views through ``ops.flash_attention``; for the mLSTM chunk kernel
@@ -17,7 +19,9 @@ Phases, each printing one line per case:
   4. kernel, plain and library times at the paths' shapes, beside the
      bound of the card: attention at the prefill shapes (S 2048 for
      qwen3-0.6b, qwen1.5-0.5b and jamba-v0.1-52b, S 4096 with the window
-     for starcoder2-3b) and the serving shape (S 16), CUDA events and the
+     for starcoder2-3b, whisper-medium's encoder at S 1500 unmasked), the
+     serving shape (S 16) and whisper-medium's serving cross-attention
+     (Sq 16 over 1,500 keys), CUDA events and the
      profiler's device time of the kernel and of
      ``scaled_dot_product_attention``; the mLSTM chunk at (B*H 16, L 16
      and 256, hd 1024), which no single PyTorch call computes, and the
@@ -28,12 +32,16 @@ Phases, each printing one line per case:
      argmax equal to the same model with the plain op (xlstm-1.3b: in
      fp32, and in bf16 every chunk held to the plain op on the path's own
      inputs), and its device time by kernel (torch.profiler; xlstm-1.3b
-     profiled at S=256);
-  6. the paper's two chains served at full width through
+     profiled at S=256) and of whisper-medium (B=4, S=448 over 1,500 zero
+     frames: 72 launches, 24 encoder + 24 self + 24 cross, each held to
+     the plain version, argmax equal to the plain-attention run);
+  6. the paper's three chains served at full width through
      ``PipelineEngine`` under each communication mechanism on a
      hand-built allocation, after one profiled call of a stage alone
      (wall time, device idle share): qwen3-0.6b -> qwen1.5-0.5b, then
-     text-to-img, xlstm-1.3b -> qwen1.5-0.5b (``sim/workloads.py``); and
+     text-to-img, xlstm-1.3b -> qwen1.5-0.5b, then text-to-text,
+     qwen3-0.6b -> whisper-medium, under "auto" only
+     (``sim/workloads.py``); and
      after each chain's ``serve`` lines, Camelot's loop on the same stage
      servers (``camelot``): each stage profiled live at batch 1/2/4/8,
      its profile fitted on the H100's spec, the predictor, the
@@ -49,40 +57,50 @@ Phases, each printing one line per case:
      ``ServeSpec(max_retries=1)`` and a last stage whose first call
      raises: one retry, all served) and ``multi_session``
      (``MultiServiceSession`` over both chains on one card, a joint
-     solve, 32 queries at 20 qps for each tenant), each with 32/32
-     completed and exact kernel launches; then the process backend:
+     solve, 32 queries at 20 qps for each tenant) and, beside it, the
+     suite's ``two-chains`` scenario (img-to-text and text-to-text, the
+     suite's own profiles, the four stage servers built by the session's
+     ``serve()``), each with 32/32 completed and exact kernel launches;
+     then the process backend:
      ``transport`` (the device arena's hand-off against the host-staged
      round trip on the card, 64 B to 16 MiB, the measured crossover beside
      the ``H100`` spec's modelled one), ``serve_processes`` (the ``serve``
      trace on worker processes, stage 0's two instances on logical devices
      0 and 1 and stage 1 on device 2, three workers on the one card with
      unenforced quotas: the qwen chain under host/device/auto, text-to-img
-     under auto, the measured crossover in the comm model, the threads
+     and text-to-text under auto, the measured crossover in the comm
+     model, the threads
      backend's p99/mean beside; under "device" every edge pick
      global-memory, by CUDA IPC) and ``session_processes``
      (``CamelotSession.serve(spec=ServeSpec(backend="processes"))`` on the
      qwen chain's fitted profiles, then a worker that kills itself on its
      first call: restarted, its batch replayed); 32/32 each, and each
      kernel's launches summed over the workers' exit reports equal to
-     layers x (batches + workers), every worker warming every stage once;
+     per-call launches x (batches + workers), every worker warming every
+     stage once (a whisper-medium call launches the attention kernel 72
+     times: once per encoder layer, twice per decoder layer);
   7. decode: the decode-attention kernel against its plain version
      (``check_decode``: G 1/2/4/12, hd 64/128, Sc 1 to 4096, valid from 0
      to Sc and off the tile, bf16 on the tensor-core kernel and fp32 on
      the exact one, the cache in the model's strided layout), its times
      at the decode path's shapes (``time_decode``: qwen3-0.6b,
      qwen1.5-0.5b and jamba-v0.1-52b at B 4, Sc 2080, starcoder2-3b at B
-     4, Sc 4096, against ``scaled_dot_product_attention``, events and
+     4, Sc 4096, whisper-medium's cross-attention at B 4 over the
+     encoder's 1,500 slots, against ``scaled_dot_product_attention``,
+     events and
      device time, and the kernel at other split targets), then
      ``Transformer.serve_decode`` at full width and depth in bf16 after
      each model's prefill
      (``decode``: qwen3-0.6b and qwen1.5-0.5b, B 4, prompt 2048, 32 steps;
      starcoder2-3b, B 4, prompt 4096 = its window, 64 steps through the
-     full ring; xlstm-1.3b, B 4, prompt 256, 16 steps), every kernel call
+     full ring; xlstm-1.3b, B 4, prompt 256, 16 steps; whisper-medium, B
+     4, prompt 256, 32 steps, 48 launches a step), every kernel call
      of a first run held against the plain version on its own inputs and
      a second run timed (ms per step, device idle share, launches), and
      in fp32 prefill + teacher-forced decode against the prefill of the
-     whole sequence (``decode_consistency``: qwen3-0.6b, and starcoder2-3b
-     decoding past its window through the ring);
+     whole sequence (``decode_consistency``: qwen3-0.6b, starcoder2-3b
+     decoding past its window through the ring, and whisper-medium over
+     random frames, its steps reading the prefill's cross cache);
   8. Mamba and jamba-v0.1-52b: the selective-scan kernel against its plain
      version (``check_ssm``: B 1/4, L 1/7/256, D 8/100/8192, ST 4/16, and
      D*ST odd or misaligned for the scalar path), its times at Jamba's
@@ -189,6 +207,7 @@ LEAD_IN_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
 PROFILE_TRIES = 3
 LEAD_IN_LOST: list = []             # lead-in records lost, per profile
 JAMBA = "jamba-v0.1-52b"
+WHISPER = "whisper-medium"
 JAMBA_LAYERS = 16
 JAMBA_CUT = ("num_layers 32 -> 16 (2 of 4 superblocks): 104 GB of bf16 "
              "weights do not fit one 80 GB card")
@@ -284,6 +303,12 @@ CHECK_CASES = [
     (1, 130, 130, 2, 2, 64, False, None, torch.bfloat16),
     # starcoder2-3b's prefill on the decode path: 24/2/128, window 4096
     (1, 4096, 4096, 24, 2, 128, True, 4096, torch.bfloat16),
+    # whisper-medium, 16/16/64: the encoder (no mask, 1,500 frames, off the
+    # 128-key tile), the cross-attention of the serving stage's 16 decoder
+    # tokens and of one token over them
+    (4, 1500, 1500, 16, 16, 64, False, None, torch.bfloat16),
+    (4, 16, 1500, 16, 16, 64, False, None, torch.bfloat16),
+    (4, 1, 1500, 16, 16, 64, False, None, torch.bfloat16),
 ]
 
 
@@ -372,14 +397,19 @@ def check_bshd(fa, ops) -> float:
 # phase 4: timing at the path's prefill shapes
 # --------------------------------------------------------------------------
 
-# (S, H, KVH, hd, window, the model whose prefill has this shape), B 4
+# (Sq, Skv, H, KVH, hd, causal, window, the model whose prefill has this
+# shape), B 4
 ATTN_TIME_SHAPES = [
-    (2048, 16, 8, 128, None, "qwen3-0.6b"),
-    (2048, 16, 16, 64, None, "qwen1.5-0.5b"),
-    (2048, 32, 8, 128, None, JAMBA),
-    (4096, 24, 2, 128, 4096, "starcoder2-3b (decode path's prefill)"),
-    (16, 16, 8, 128, None, "qwen3-0.6b (serving)"),
-    (16, 16, 16, 64, None, "qwen1.5-0.5b (serving)"),
+    (2048, 2048, 16, 8, 128, True, None, "qwen3-0.6b"),
+    (2048, 2048, 16, 16, 64, True, None, "qwen1.5-0.5b"),
+    (2048, 2048, 32, 8, 128, True, None, JAMBA),
+    (4096, 4096, 24, 2, 128, True, 4096,
+     "starcoder2-3b (decode path's prefill)"),
+    (16, 16, 16, 8, 128, True, None, "qwen3-0.6b (serving)"),
+    (16, 16, 16, 16, 64, True, None, "qwen1.5-0.5b (serving)"),
+    (1500, 1500, 16, 16, 64, False, None, "whisper-medium (encoder)"),
+    (16, 1500, 16, 16, 64, False, None,
+     "whisper-medium (cross, serving)"),
 ]
 
 
@@ -395,7 +425,8 @@ def library_device_ms(fn, calls: int) -> tuple:
 
 def time_kernels(fa, ops, peaks) -> list:
     """Kernel, plain and library times at the prefill paths' shapes (and
-    the serving shape, S = 16): CUDA-event ms of the kernel on the TPU
+    the serving shape, S = 16, and whisper-medium's encoder and
+    cross-attention, unmasked): CUDA-event ms of the kernel on the TPU
     op's (B*H, S, hd) layout and on the model's (B, S, H, hd), the
     kernel's device ms from the profiler, and the same two times of one
     ``scaled_dot_product_attention`` call on the same values."""
@@ -404,46 +435,49 @@ def time_kernels(fa, ops, peaks) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1)
     b = 4
     rows = []
-    for s, h, kvh, hd, window, model in ATTN_TIME_SHAPES:
-        iters = 20 if s > 16 else 200        # S = 16 launches take ~10 us
+    for sq, skv, h, kvh, hd, causal, window, model in ATTN_TIME_SHAPES:
+        iters = 20 if sq > 16 else 200       # Sq = 16 launches take ~10 us
         dt = torch.bfloat16
-        q = rand(gen, (b * h, s, hd), dt)
-        k = rand(gen, (b * kvh, s, hd), dt)
-        v = rand(gen, (b * kvh, s, hd), dt)
-        kw = dict(num_heads=h, num_kv_heads=kvh, causal=True, window=window)
+        q = rand(gen, (b * h, sq, hd), dt)
+        k = rand(gen, (b * kvh, skv, hd), dt)
+        v = rand(gen, (b * kvh, skv, hd), dt)
+        kw = dict(num_heads=h, num_kv_heads=kvh, causal=causal,
+                  window=window)
 
         def kernel():
             return fa.flash_attention_bhsd(q, k, v, **kw)
         ms = cuda_ms(kernel, iters)
         device_ms = kernel_device_ms(kernel, (ATTN_KERNEL,),
-                                     10 if s > 16 else 50)[ATTN_KERNEL]
+                                     10 if sq > 16 else 50)[ATTN_KERNEL]
         # the model's layout: (B, S, H, hd) tensors of the same values
-        q4, k4, v4 = (t.view(b, -1, s, hd).transpose(1, 2).contiguous()
-                      for t in (q, k, v))
+        q4, k4, v4 = (t.view(b, -1, t.shape[1], hd).transpose(1, 2)
+                      .contiguous() for t in (q, k, v))
         ms_bshd = cuda_ms(lambda: ops.flash_attention(
-            q4, k4, v4, causal=True, window=window), iters)
+            q4, k4, v4, causal=causal, window=window), iters)
         del q4, k4, v4
         plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v, **kw),
                            max(iters // 4, 3))
         torch.cuda.empty_cache()
         # the library on (B, H, S, hd) views; every window here spans the
         # whole sequence, so causal is the same function
-        if window is not None and window < s:
+        if window is not None and window < skv:
             raise AssertionError("SDPA's is_causal is not this window")
-        ql, kl, vl = (t.view(b, -1, s, hd) for t in (q, k, v))
+        ql, kl, vl = (t.view(b, -1, t.shape[1], hd) for t in (q, k, v))
 
         def library():
             return F.scaled_dot_product_attention(
-                ql, kl, vl, is_causal=True, enable_gqa=kvh != h)
+                ql, kl, vl, is_causal=causal, enable_gqa=kvh != h)
         lib_ms = cuda_ms(library, iters)
         lib_device_ms, lib_kernels = library_device_ms(
-            library, 10 if s > 16 else 50)
+            library, 10 if sq > 16 else 50)
         # work these inputs need: every unmasked (q, k) pair, QK^T and PV
-        pairs = sum(min(i + 1, window or s) for i in range(s))
+        pairs = sum(min(i + 1, window or skv) for i in range(sq)) \
+            if causal else sq * skv
         flops = 4 * hd * pairs * b * h
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         t_ops, t_bytes = flops / flops_rate, nbytes / mem_rate
-        row = {"model": model, "h": h, "kvh": kvh, "hd": hd, "b": b, "s": s,
+        row = {"model": model, "h": h, "kvh": kvh, "hd": hd, "b": b,
+               "sq": sq, "skv": skv, "causal": causal,
                "window": window, "ms": ms, "device_ms": device_ms,
                "ms_bshd": ms_bshd, "plain_ms": plain_ms,
                "library_ms": lib_ms, "library_device_ms": lib_device_ms,
@@ -792,6 +826,84 @@ def prefill_xlstm(ms, ops, Transformer, get_config) -> int:
     return launches
 
 
+def prefill_whisper(fa, ops, Transformer, get_config) -> int:
+    """Full-width whisper-medium in bf16, B 4: a decoder prompt of 448
+    tokens (Whisper's text context) over 1,500 zero frames, as its stage
+    passes them.  A first run holds every attention call (24 encoder, 24
+    self, 24 cross) to the plain version under ``check_kernels``'s
+    bounds; then a timed run (the count from 0 just before it), a
+    profiled one, and one on the plain op (argmax, logits).  Returns the
+    timed prefill's launches."""
+    cfg = get_config(WHISPER)
+    n_calls = prefill_launches(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    b, s = 4, 448
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=2)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    frames = zero_frames(cfg, b, torch.bfloat16)
+    errs: dict = {}
+    with torch.inference_mode():
+        checked, _ = model.serve_prefill(
+            tokens, frames=frames, attention=checking_attention_op(ops, errs))
+        torch.cuda.synchronize()
+        fa.LAUNCHES = 0                   # the timed prefill only
+        t0 = time.perf_counter()
+        logits, cache = model.serve_prefill(tokens, frames=frames)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = fa.LAUNCHES
+        shapes = {"self_cache": list(cache.layers[0].k.shape),
+                  "cross_cache": list(cache.cross[0].k.shape)}
+        del cache
+        device_ms, kernels = device_profile(
+            lambda: model.serve_prefill(tokens, frames=frames),
+            expect={ATTN_KERNEL: n_calls})
+        plain, _ = model.serve_prefill(tokens, frames=frames,
+                                       attention=ops.flash_attention_plain)
+        torch.cuda.synchronize()
+    finite = bool(torch.isfinite(logits).all())
+    ids, ids_plain = logits.argmax(-1), plain.argmax(-1)
+    same = bool((ids == ids_plain).all())
+    rel = (logits.float() - plain.float()).abs().max().item() \
+        / plain.float().abs().max().item()
+    attn_ms = sum(t for name, _, t in kernels if ATTN_KERNEL in name)
+    emit({"phase": "prefill", "arch": cfg.name, "b": b, "s": s,
+          "encoder_frames": cfg.encoder_seq_len, "frames": "zeros",
+          "dtype": "bfloat16", "layers": cfg.num_layers,
+          "encoder_layers": cfg.num_encoder_layers, "init_s": init_s,
+          "prefill_s": prefill_s, "launches": launches,
+          "device_ms": device_ms,
+          "device_idle_share": max(0.0, 1 - device_ms / (prefill_s * 1e3)),
+          "device_launches": sum(n for _, n, _ in kernels),
+          "attention_kernel_ms": attn_ms,
+          "attention_share": attn_ms / device_ms,
+          "attention_errs_vs_plain": errs,
+          "checked_run_equal": bool(torch.equal(checked, logits)),
+          "logits_shape": list(logits.shape), "finite": finite,
+          "argmax_equal_plain": same, "max_rel_logit_diff_plain": rel,
+          **shapes, "top_device_kernels": kernels[:6]})
+    if logits.shape != (b, cfg.vocab_size) or not finite:
+        raise AssertionError(f"{cfg.name}: bad logits")
+    if launches != n_calls:
+        raise AssertionError(f"{cfg.name}: {launches} attention launches, "
+                             f"want {n_calls}")
+    if errs.get("calls") != n_calls or not errs["worst_ratio"] <= 1 \
+            or not errs["worst_row_ratio"] <= 1:
+        raise AssertionError(f"{cfg.name}: an attention call of the checked "
+                             f"run disagrees with the plain version: {errs}")
+    if not same or not rel <= LOGIT_REL_TOL:
+        raise AssertionError(f"{cfg.name}: the plain-attention run differs: "
+                             f"argmax {ids.tolist()} vs "
+                             f"{ids_plain.tolist()}, {rel} of max |logit|")
+    del model, logits, plain, checked
+    gc_collect()
+    return launches
+
+
 # --------------------------------------------------------------------------
 # phase 7: decode
 # --------------------------------------------------------------------------
@@ -816,8 +928,9 @@ def check_decode(dec) -> tuple:
     """The decode kernel against ``decode_attention_plain`` on the card,
     one line per (G, hd, Sc, dtype, layout), with the max error for each
     ``valid`` (0, 1, part of Sc, Sc - 3: off the 32-slot tile, Sc: a full
-    ring); returns the largest error and the largest error over its
-    row's max |ref|."""
+    ring), then whisper-medium's cross-attention step (B 4, the encoder's
+    1,500 slots, 16/16/64); returns the largest error and the largest
+    error over its row's max |ref|."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     b, kvh = 2, 2
     worst = (0.0, 0.0)
@@ -832,6 +945,9 @@ def check_decode(dec) -> tuple:
                             dec, gen, b, sc, g * kvh, kvh, hd, dtype,
                             layout)
                         worst = (max(worst[0], err), max(worst[1], row))
+        err, row = _check_decode_case(dec, gen, 4, 1500, 16, 16, 64, dtype,
+                                      "model")
+        worst = (max(worst[0], err), max(worst[1], row))
     return worst
 
 
@@ -880,7 +996,9 @@ def _check_decode_case(dec, gen, b, sc, h, kvh, hd, dtype, layout) -> tuple:
 DECODE_SHAPES = [("qwen3-0.6b", 16, 8, 128, 2080),
                  ("qwen1.5-0.5b", 16, 16, 64, 2080),
                  ("starcoder2-3b", 24, 2, 128, 4096),
-                 (JAMBA, 32, 8, 128, 2080)]
+                 (JAMBA, 32, 8, 128, 2080),
+                 # the cross-attention step over the encoder's output
+                 ("whisper-medium (cross)", 16, 16, 64, 1500)]
 
 
 def time_decode(dec, ops, peaks) -> list:
@@ -986,10 +1104,35 @@ def decode_steps(model, logits, cache, steps: int, **kw):
 
 
 def first_attention_layer(model):
-    """Index of the model's first attention layer, or None."""
-    from repro_torch.configs import ATTN
+    """Index of the model's first attention layer (ATTN or CROSS), or
+    None."""
+    from repro_torch.configs import ATTN, CROSS
     return next((i for i, (kind, _) in enumerate(model.kinds)
-                 if kind == ATTN), None)
+                 if kind in (ATTN, CROSS)), None)
+
+
+def decode_launches_per_step(cfg) -> int:
+    """Decode-kernel launches of one ``serve_decode`` step: one per ATTN
+    layer, two per CROSS layer (its self- and its cross-attention)."""
+    from repro_torch.configs import ATTN, CROSS
+    return (cfg.block_pattern.count(ATTN)
+            + 2 * cfg.block_pattern.count(CROSS)) * cfg.num_superblocks
+
+
+def prefill_launches(cfg) -> int:
+    """Prefill-kernel launches of one ``serve_prefill``: those of a decode
+    step and one per encoder layer."""
+    return decode_launches_per_step(cfg) + (
+        cfg.num_encoder_layers if cfg.encoder_decoder else 0)
+
+
+def zero_frames(cfg, b: int, dtype):
+    """An encoder-decoder's frames as its stage server passes them (the
+    stubbed front end: zeros, (B, S_enc, d)); None for other models."""
+    if not cfg.encoder_decoder:
+        return None
+    return torch.zeros(b, cfg.encoder_seq_len, cfg.d_model, dtype=dtype,
+                       device="cuda")
 
 
 def decode_model(dec, ops, model, prompt: int, steps: int, gen,
@@ -997,25 +1140,29 @@ def decode_model(dec, ops, model, prompt: int, steps: int, gen,
     """``serve_decode`` of ``model`` in bf16 after its prefill: a first
     run with every decode kernel call held against the plain version, a
     timed run (the count from 0 just before its steps) and a profiled
-    one; returns the decode kernel's launches in the timed steps."""
-    from repro_torch.configs import ATTN
+    one; returns the decode kernel's launches in the timed steps.  An
+    encoder-decoder prefills over zero frames, as its stage does."""
+    from repro_torch.configs import ATTN, CROSS
     cfg = model.cfg
-    n_attn = cfg.block_pattern.count(ATTN) * cfg.num_superblocks
+    n_dec = decode_launches_per_step(cfg)
     ai = first_attention_layer(model)
     tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen,
                            device="cuda", dtype=torch.int32)
+    frames = zero_frames(cfg, b, model.dtype)
     errs: dict = {}
     with torch.inference_mode():
         # run 1: every kernel call held against the plain version
-        logits, cache = model.serve_prefill(tokens, cache_len=prompt + steps)
+        logits, cache = model.serve_prefill(tokens, cache_len=prompt + steps,
+                                            frames=frames)
         _, cache, fed_checked = decode_steps(
             model, logits, cache, steps,
             decode_attention=checking_decode_op(ops, errs))
         del cache
         # run 2, timed: the counts from 0 just before the steps
-        logits, cache = model.serve_prefill(tokens, cache_len=prompt + steps)
-        s_cache = cache.layers[ai].k.shape[1] if n_attn else None
-        k_ptr = cache.layers[ai].k.data_ptr() if n_attn else None
+        logits, cache = model.serve_prefill(tokens, cache_len=prompt + steps,
+                                            frames=frames)
+        s_cache = cache.layers[ai].k.shape[1] if n_dec else None
+        k_ptr = cache.layers[ai].k.data_ptr() if n_dec else None
         torch.cuda.synchronize()
         dec.LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1027,11 +1174,12 @@ def decode_model(dec, ops, model, prompt: int, steps: int, gen,
         del cache
         # run 3, profiled: device time of a few steps
         prof_steps = min(8, steps)
-        logits, cache = model.serve_prefill(tokens, cache_len=prompt + steps)
+        logits, cache = model.serve_prefill(tokens, cache_len=prompt + steps,
+                                            frames=frames)
         torch.cuda.synchronize()
         device_ms, kernels = device_profile(
             lambda: decode_steps(model, logits, cache, prof_steps),
-            expect={DECODE_BF16[0]: n_attn * prof_steps})
+            expect={DECODE_BF16[0]: n_dec * prof_steps})
         del cache
     step_ms = wall_s * 1e3 / steps
     dev_step_ms = device_ms / prof_steps
@@ -1040,7 +1188,9 @@ def decode_model(dec, ops, model, prompt: int, steps: int, gen,
     finite = bool(torch.isfinite(last).all())
     emit({"phase": "decode", "arch": cfg.name, **extra, "b": b,
           "prompt": prompt, "steps": steps, "layers": cfg.num_layers,
-          "attention_layers": n_attn, "s_cache": s_cache,
+          "attention_layers": sum(kind in (ATTN, CROSS)
+                                  for kind, _ in model.kinds),
+          "decode_launches_per_step": n_dec, "s_cache": s_cache,
           "ms_per_step": step_ms, "device_ms_per_step": dev_step_ms,
           "device_idle_share": max(0.0, 1 - dev_step_ms / step_ms),
           "device_launches_per_step":
@@ -1054,13 +1204,13 @@ def decode_model(dec, ops, model, prompt: int, steps: int, gen,
           "same_tokens_as_checked_run": bool(torch.equal(fed, fed_checked)),
           "logits_shape": list(last.shape),
           "top_device_kernels": kernels[:6]})
-    if launches != n_attn * steps:
+    if launches != n_dec * steps:
         raise AssertionError(f"{cfg.name}: {launches} decode kernel "
-                             f"launches for {n_attn} attention layers x "
-                             f"{steps} steps")
-    if n_attn and errs.get("calls") != n_attn * steps:
+                             f"launches for {n_dec} a step x {steps} "
+                             f"steps")
+    if n_dec and errs.get("calls") != n_dec * steps:
         raise AssertionError(f"{cfg.name}: {errs.get('calls')} checked calls")
-    if n_attn and not (errs["worst_ratio"] <= 1.0
+    if n_dec and not (errs["worst_ratio"] <= 1.0
                        and errs["worst_row_ratio"] <= 1.0):
         raise AssertionError(f"{cfg.name}: a decode kernel call disagrees "
                              f"with the plain version: {errs}")
@@ -1071,7 +1221,8 @@ def decode_model(dec, ops, model, prompt: int, steps: int, gen,
 
 # (model, prompt, decode steps, seed): B = 4 for each
 DECODE_RUNS = [("qwen3-0.6b", 2048, 32, 0), ("qwen1.5-0.5b", 2048, 32, 1),
-               ("starcoder2-3b", 4096, 64, 4), ("xlstm-1.3b", 256, 16, 3)]
+               ("starcoder2-3b", 4096, 64, 4), ("xlstm-1.3b", 256, 16, 3),
+               ("whisper-medium", 256, 32, 2)]
 
 
 def decode_full_width(dec, ops, Transformer, get_config) -> dict:
@@ -1093,13 +1244,16 @@ def decode_full_width(dec, ops, Transformer, get_config) -> dict:
 CONSISTENCY_RUNS = [("qwen3-0.6b", 2, 512, 16),
                     # 4092 + 12 crosses the 4096 window: the last 8 steps
                     # overwrite the ring's oldest slots
-                    ("starcoder2-3b", 1, 4092, 12)]
+                    ("starcoder2-3b", 1, 4092, 12),
+                    # the decode steps read the cross cache the prefill made
+                    ("whisper-medium", 2, 256, 16)]
 
 
 def decode_consistency(Transformer, runs, seed: int = 11) -> list:
     """In fp32: prefill(S) and N teacher-forced decode steps give the last
     logits of prefill(S + N).  ``runs``: (config, batch, prompt, decode
-    steps, note) each."""
+    steps, note) each.  An encoder-decoder gets the same random frames in
+    both prefills."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for cfg, b, s, n, note in runs:
@@ -1107,12 +1261,17 @@ def decode_consistency(Transformer, runs, seed: int = 11) -> list:
         ai = first_attention_layer(model)
         tokens = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen,
                                device="cuda", dtype=torch.int32)
+        frames = None
+        if cfg.encoder_decoder:
+            frames = rand(gen, (b, cfg.encoder_seq_len, cfg.d_model),
+                          torch.float32)
         with torch.inference_mode():
-            full, full_cache = model.serve_prefill(tokens)
+            full, full_cache = model.serve_prefill(tokens, frames=frames)
             s_cache = full_cache.layers[ai].k.shape[1]
             del full_cache
             logits, cache = model.serve_prefill(tokens[:, :s],
-                                                cache_len=s + n)
+                                                cache_len=s + n,
+                                                frames=frames)
             for i in range(s, s + n):
                 logits, cache = model.serve_decode(tokens[:, i], cache)
             torch.cuda.synchronize()
@@ -1619,7 +1778,13 @@ def on_one_card(name: str, alloc) -> float:
     return device0
 
 
-def layers_of(stages, kind: str) -> int:
+def launches_per_call(stages, kind: str) -> int:
+    """Launches of ``kind``'s kernel in one call of every stage at seq_len
+    16: the attention kernel once per ATTN layer, twice per CROSS layer
+    and once per encoder layer (``prefill_launches``); the mLSTM kernel
+    once per MLSTM layer (one chunk)."""
+    if kind == "attn":
+        return sum(prefill_launches(st.cfg) for st in stages)
     return sum(st.cfg.block_pattern.count(kind) * st.cfg.num_superblocks
                for st in stages)
 
@@ -1821,7 +1986,7 @@ def session_faults_phase(chain: str, stages, profiles, kernels) -> dict:
                              "batches")
     # each stage's launches: its layers x (its calls + its warm-up)
     check_launches("session_faults", launches, {
-        name: sum(layers_of([st], kind) * (c + 1)
+        name: sum(launches_per_call([st], kind) * (c + 1)
                   for st, c in zip(stages, calls))
         for name, kind in KERNEL_KINDS
         if name in launches})
@@ -1830,11 +1995,10 @@ def session_faults_phase(chain: str, stages, profiles, kernels) -> dict:
 
 def multi_session_phase(chains, kernels) -> dict:
     """``MultiServiceSession`` over both chains on one H100, each from its
-    live-fitted profiles: one joint ``solve("max-peak")``, ``simulate([20,
-    20])``, then ``serve(tenant_stages=...)`` with ``make_traces(32, [20,
-    20], seed=7)`` on the shared pool.  Returns the traces' launches."""
+    live-fitted profiles, served on their live servers
+    (``serve_tenants``).  Returns the traces' launches."""
     from repro_torch.camelot import (ClusterSpec, MultiServiceSession,
-                                     QoSSpec, SAConfig, TenantSpec)
+                                     QoSSpec, TenantSpec)
     from repro_torch.core import H100
     t_phase = time.perf_counter()
     sess = MultiServiceSession(
@@ -1843,24 +2007,67 @@ def multi_session_phase(chains, kernels) -> dict:
          for chain, stages, profiles in chains],
         ClusterSpec(device=H100, devices=1), batch=4, name="paper-chains")
     sess.profile()
+    return serve_tenants(sess, [stages for _, stages, _ in chains], kernels,
+                         t_phase)
+
+
+def two_chains_phase(kernels) -> dict:
+    """``MultiServiceSession`` over the suite's ``two-chains`` scenario
+    (``multitenant_suite``: img-to-text, qwen1.5-0.5b -> xlstm-1.3b, and
+    text-to-text, qwen3-0.6b -> whisper-medium), its own profiles sized
+    for the H100 and its own QoS targets; ``serve()`` builds the four
+    stage servers itself, at full width on the card (``serve_tenants``).
+    Returns the traces' launches."""
+    from repro_torch.camelot import ClusterSpec, MultiServiceSession
+    from repro_torch.core import H100
+    from repro_torch.sim import multitenant_suite
+    t_phase = time.perf_counter()
+    sess = MultiServiceSession(multitenant_suite(H100)["two-chains"],
+                               ClusterSpec(device=H100, devices=1), batch=4,
+                               name="two-chains")
+    sess.profile()
+    launches = serve_tenants(sess, None, kernels, t_phase)
+    gc_collect()
+    return launches
+
+
+def serve_tenants(sess, tenant_stages, kernels, t_phase: float) -> dict:
+    """One joint ``solve("max-peak")`` of ``sess`` on one card,
+    ``simulate`` at 20 qps a tenant, then ``serve(tenant_stages=...)``
+    (None: the session builds the servers) with ``make_traces(32, 20 qps
+    each, seed=7)`` on the shared pool: every query of every tenant
+    completes, and each kernel launches exactly its per-call count per
+    batch and warm-up.  Prints a ``multi_session`` line; returns the
+    traces' launches."""
+    from repro_torch.camelot import SAConfig
     t0 = time.perf_counter()
     res = sess.solve("max-peak", sa=SAConfig(
         iterations=FACADE_SA_ITERATIONS, seed=0))
     solve_s = time.perf_counter() - t0
+    scenario = sess.spec.name
     if not res.feasible:
-        raise AssertionError("multi_session: no feasible joint solve")
-    on_one_card("multi_session", res.allocation)
-    sim = sess.simulate([20.0, 20.0])
-    eng = sess.serve(tenant_stages=[stages for _, stages, _ in chains])
-    traces = sess.make_traces(32, [20.0, 20.0], seed=7)
+        raise AssertionError(f"multi_session {scenario}: no feasible joint "
+                             "solve")
+    on_one_card(f"multi_session {scenario}", res.allocation)
+    qps = [20.0] * sess.n_tenants
+    sim = sess.simulate(qps)
+    t0 = time.perf_counter()
+    eng = sess.serve(tenant_stages=tenant_stages)
+    serve_s = time.perf_counter() - t0
+    served = [t.stages for t in eng.tenants]
+    traces = sess.make_traces(32, qps, seed=7)
     counts = zero_counts(kernels)
     stats = eng.run_traces(traces)
     launches = counts()
     rows = []
-    for (chain, _, _), st, sm, part in zip(chains, stats, sim.per_tenant,
-                                           sess.split()):
+    for g, target, stages, st, sm, part in zip(
+            sess.graphs, sess.qos_targets, served, stats, sim.per_tenant,
+            sess.split()):
         s = st.summary()
-        rows.append({"chain": chain, "stages": alloc_row(part),
+        rows.append({"chain": g.name,
+                     "archs": [x.cfg.name for x in stages],
+                     "qos_target_s": target,
+                     "stages": alloc_row(part),
                      "simulated": {"p99_ms": sm.p99 * 1e3,
                                    "mean_ms": sm.mean_latency * 1e3},
                      "measured": {"p99_ms": s["p99"] * 1e3,
@@ -1868,26 +2075,32 @@ def multi_session_phase(chains, kernels) -> dict:
                                   "completed": s["completed"],
                                   "failed": s["failed"]},
                      "batches": st.batches})
-    emit({"phase": "multi_session", "queries": 32, "qps": [20.0, 20.0],
+    emit({"phase": "multi_session", "scenario": scenario, "queries": 32,
+          "qps": qps, "stage_servers": "built by serve()"
+          if tenant_stages is None else "the chains' live servers",
+          "serve_s": serve_s,
           "solve": {"predicted_lambda": res.objective, "wall_s": solve_s},
           "tenants": rows, "launches": launches,
           "seconds": time.perf_counter() - t_phase})
-    for (chain, _, _), st in zip(chains, stats):
-        check_served(f"multi_session {chain}", st.summary(), 32)
-    check_launches("multi_session", launches, {
-        name: sum(layers_of(stages, kind) * (st.batches + 1)
-                  for (_, stages, _), st in zip(chains, stats))
+    for g, st in zip(sess.graphs, stats):
+        check_served(f"multi_session {g.name}", st.summary(), 32)
+    check_launches(f"multi_session {scenario}", launches, {
+        name: sum(launches_per_call(stages, kind) * (st.batches + 1)
+                  for stages, st in zip(served, stats))
         for name, kind in KERNEL_KINDS})
     return launches
 
 
 def facade_phases(chains, kernels) -> dict:
-    """The three facade phases; ``chains``: (name, live stage servers,
-    fitted profiles) of the qwen chain, then text-to-img."""
+    """The facade phases; ``chains``: (name, live stage servers, fitted
+    profiles) of the qwen chain, then text-to-img (the two chains of
+    ``multi_session``).  Then the suite's ``two-chains`` scenario on
+    stage servers its session builds."""
     qwen = chains[0]
     return {"session": session_phase(*qwen, kernels),
             "session_faults": session_faults_phase(*qwen, kernels),
-            "multi_session": multi_session_phase(chains, kernels)}
+            "multi_session": multi_session_phase(chains[:2], kernels),
+            "multi_session_two_chains": two_chains_phase(kernels)}
 
 
 # ---------------------------------------------------------------------------
@@ -1963,11 +2176,12 @@ def worker_launches(eng) -> dict:
 
 def check_worker_launches(phase: str, stages, eng, batches: int) -> dict:
     """Every worker warms every stage once, and each batch passes every
-    stage once: layers x (batches + workers) launches of each kernel."""
+    stage once: per call x (batches + workers) launches of each kernel."""
     launches = worker_launches(eng)
     workers = len(eng.worker_reports)
     check_launches(phase, launches,
-                   {name: layers_of(stages, kind) * (batches + workers)
+                   {name: launches_per_call(stages, kind)
+                    * (batches + workers)
                     for name, kind in KERNEL_KINDS})
     return launches
 
@@ -2108,48 +2322,59 @@ def session_processes_phase(chain: str, stages, profiles,
 
 def process_phases(chains, threads: dict) -> dict:
     """``transport``, then ``serve_processes`` (the qwen chain under
-    host/device/auto, text-to-img under auto) and ``session_processes``
-    on the qwen chain; ``threads``: each chain's ``serve`` summaries.
-    Returns the kernels' launches summed over the workers, by phase.  The
-    driver's cached device blocks are released before each pool, so the
-    workers' models fit beside the driver's."""
+    host/device/auto, text-to-img and text-to-text under auto) and
+    ``session_processes`` on the qwen chain; ``threads``: each chain's
+    ``serve`` summaries.  Returns the kernels' launches summed over the
+    workers, by phase.  The driver's cached device blocks are released
+    before each pool, so the workers' models fit beside the driver's."""
     crossover = transport_phase()
-    qwen, t2i = chains
+    qwen, t2i, t2t = chains
     return {"serve_processes_chain": serve_processes(
                 qwen[0], qwen[1], ("host", "device", "auto"), crossover,
                 threads[qwen[0]]),
             "serve_processes_text_to_img": serve_processes(
                 t2i[0], t2i[1], ("auto",), crossover, threads[t2i[0]]),
+            "serve_processes_text_to_text": serve_processes(
+                t2t[0], t2t[1], ("auto",), crossover, threads[t2t[0]]),
             "session_processes": session_processes_phase(*qwen, crossover)}
 
 
 def serve_pipelines(fa, ms) -> tuple:
-    """The two chains of the paper's services, one after the other, each
-    served on the hand-built allocation (``serve``) and then through
-    Camelot's loop on the same stage servers (``camelot``); at seq_len 16
-    each mLSTM layer runs one chunk per batch.  Then the facade phases on
-    both chains' servers, then the process backend's phases (the workers
-    rebuild the servers from their pickles).  Returns each chain's kernel
-    launches in the two phases, the facade phases' launches, and the
-    process phases' launches (summed over their workers)."""
+    """The three chains of the paper's services, one after the other, each
+    served on the hand-built allocation (``serve``; text-to-text under
+    "auto" only) and then through Camelot's loop on the same stage
+    servers (``camelot``); at seq_len 16 each mLSTM layer runs one chunk
+    per batch, and the whisper-medium stage its encoder over 1,500 zero
+    frames.  Then the facade phases, then the process backend's phases
+    (the workers rebuild the servers from their pickles).  Returns each
+    chain's kernel launches in the two phases, the facade phases'
+    launches, and the process phases' launches (summed over their
+    workers)."""
     from repro_torch.serving import ModelStageServer
+    every = ("host", "device", "auto")
     chains = (
         ("qwen3-0.6b->qwen1.5-0.5b", (("stage0", "qwen3-0.6b", 0),
                                       ("stage1", "qwen1.5-0.5b", 1)),
-         (0, 1)),
+         (0, 1), every),
         ("text-to-img", (("semantic-understanding", "xlstm-1.3b", 3),
-                         ("image-generation", "qwen1.5-0.5b", 1)), (0,)))
+                         ("image-generation", "qwen1.5-0.5b", 1)), (0,),
+         every),
+        ("text-to-text", (("text-summarization", "qwen3-0.6b", 0),
+                          ("text-translation", WHISPER, 2)), (1,),
+         ("auto",)))
     out, live, threads = [], [], {}
-    for chain, specs, breakdown in chains:
+    for chain, specs, breakdown, mechanisms in chains:
         stages = [ModelStageServer(name, arch, seq_len=16, seed=seed)
                   for name, arch, seed in specs]
-        kernels = [("flash_attention_bhsd", fa, layers_of(stages, "attn")),
-                   ("mlstm_chunk_step", ms, layers_of(stages, "mlstm"))]
+        kernels = [("flash_attention_bhsd", fa,
+                    launches_per_call(stages, "attn")),
+                   ("mlstm_chunk_step", ms,
+                    launches_per_call(stages, "mlstm"))]
         for i in breakdown:
             emit(stage_breakdown(stages[i], batch=4))
         served, summaries = serve_chain(
             chain, stages, build_allocation(len(stages), instances=2,
-                                            batch=4), kernels)
+                                            batch=4), kernels, mechanisms)
         camelot, profiles = camelot_chain(chain, stages, kernels,
                                           summaries["auto"])
         threads[chain] = summaries
@@ -2157,8 +2382,8 @@ def serve_pipelines(fa, ms) -> tuple:
         live.append((chain, stages, profiles))
     qwen_stages = live[0][1]
     facade = facade_phases(live, [
-        ("flash_attention_bhsd", fa, layers_of(qwen_stages, "attn")),
-        ("mlstm_chunk_step", ms, layers_of(qwen_stages, "mlstm"))])
+        ("flash_attention_bhsd", fa, launches_per_call(qwen_stages, "attn")),
+        ("mlstm_chunk_step", ms, launches_per_call(qwen_stages, "mlstm"))])
     processes = process_phases(live, threads)
     del live, stages, qwen_stages
     gc_collect()
@@ -2212,8 +2437,10 @@ def main() -> int:
     # path, whose counts are the kernels line's ``launches``)
     launches_prefill = prefill_full_width(fa, ops, Transformer, get_config)
     launches_prefill_mlstm = prefill_xlstm(ms, ops, Transformer, get_config)
-    ((first, camelot_first), (second, camelot_second)), facade, processes = \
-        serve_pipelines(fa, ms)
+    launches_prefill_whisper = prefill_whisper(fa, ops, Transformer,
+                                               get_config)
+    ((first, camelot_first), (second, camelot_second),
+     (third, camelot_third)), facade, processes = serve_pipelines(fa, ms)
     # the decode path: the decode kernel's count from 0 before each
     # model's timed steps; the prefills before them count the others
     fa.LAUNCHES = ms.LAUNCHES = 0
@@ -2250,7 +2477,7 @@ def main() -> int:
 
     main_row = timing[0]
     attn_serve = first["flash_attention_bhsd"] \
-        + second["flash_attention_bhsd"]
+        + second["flash_attention_bhsd"] + third["flash_attention_bhsd"]
     # the facade phases' launches, by phase, for each kernel
     facade_by = {name: {phase: n[name] for phase, n in facade.items()}
                  for name in ("flash_attention_bhsd", "mlstm_chunk_step")}
@@ -2268,6 +2495,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:89",
         "launches": attn_serve + camelot_first["flash_attention_bhsd"]
         + camelot_second["flash_attention_bhsd"]
+        + camelot_third["flash_attention_bhsd"]
         + sum(facade_by["flash_attention_bhsd"].values()),
         "launches_serve": attn_serve,
         "launches_facade": facade_by["flash_attention_bhsd"],
@@ -2276,10 +2504,14 @@ def main() -> int:
         "launches_processes_by_phase": processes_by["flash_attention_bhsd"],
         "launches_serve_chain": first["flash_attention_bhsd"],
         "launches_serve_text_to_img": second["flash_attention_bhsd"],
+        "launches_serve_text_to_text": third["flash_attention_bhsd"],
         "launches_camelot_chain": camelot_first["flash_attention_bhsd"],
         "launches_camelot_text_to_img":
             camelot_second["flash_attention_bhsd"],
+        "launches_camelot_text_to_text":
+            camelot_third["flash_attention_bhsd"],
         "launches_prefill": launches_prefill,
+        "launches_prefill_whisper": launches_prefill_whisper,
         "launches_jamba_prefill": launches_jamba["flash_attention_bhsd"],
         "launches_decode_path_prefills":
             launches_decode_prefills["flash_attention_bhsd"],

@@ -1,6 +1,7 @@
 from repro_torch.configs.base import (
     ARCH_IDS,
     ATTN,
+    CROSS,
     MAMBA,
     MLSTM,
     SLSTM,
@@ -12,6 +13,6 @@ from repro_torch.configs.base import (
     register,
 )
 
-__all__ = ["ARCH_IDS", "ATTN", "MAMBA", "MLSTM", "ModelConfig", "MoEConfig",
-           "SLSTM", "active_param_count", "get_config", "param_count",
-           "register"]
+__all__ = ["ARCH_IDS", "ATTN", "CROSS", "MAMBA", "MLSTM", "ModelConfig",
+           "MoEConfig", "SLSTM", "active_param_count", "get_config",
+           "param_count", "register"]

@@ -4,10 +4,10 @@ Each architecture the port knows gets one module in this package that
 builds a ``ModelConfig`` via :func:`register`.  ``get_config(name)``
 returns the full published configuration; ``get_config(name, reduced=True)``
 returns the small variant of the same family (one superblock, d_model <=
-256) that the CPU tests use.  Any other name raises ``KeyError``.  A known
-configuration whose blocks the port's models do not implement (whisper-
-medium's encoder-decoder) is data for the predictor and the workloads;
-building its model raises ``NotImplementedError``
+256) that the CPU tests use.  Any other name raises ``KeyError``.  Every
+configuration registered here has its model ported
+(``models/transformer.py``); a block kind the models do not implement
+raises ``NotImplementedError`` when its model is built
 (``models/transformer.py:_check_ported``).
 """
 from __future__ import annotations
@@ -17,8 +17,8 @@ from dataclasses import dataclass, replace
 from typing import Callable, Optional, Sequence
 
 
-# Block kinds (the port's models implement ATTN with a dense MLP, MAMBA with
-# a dense or MoE MLP, and MLSTM and SLSTM with none)
+# Block kinds (the port's models implement ATTN and CROSS with a dense MLP,
+# MAMBA with a dense or MoE MLP, and MLSTM and SLSTM with none)
 ATTN = "attn"          # (causal or bidirectional) self-attention block
 CROSS = "cross"        # decoder block with self + cross attention (enc-dec)
 MAMBA = "mamba"        # Mamba selective-SSM block
@@ -126,8 +126,7 @@ class ModelConfig:
 _REGISTRY: dict[str, ModelConfig] = {}
 _REDUCERS: dict[str, Callable[[ModelConfig], ModelConfig]] = {}
 
-# the configurations the port knows (every one but whisper-medium also
-# has its model ported)
+# the configurations the port knows, each with its model ported
 _MODULES = {
     "jamba-v0.1-52b": "jamba_v0p1_52b",
     "qwen1.5-0.5b": "qwen1p5_0p5b",

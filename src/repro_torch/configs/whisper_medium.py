@@ -1,10 +1,11 @@
 """Whisper-medium — encoder-decoder ASR backbone [arXiv:2212.04356].
 
 24 decoder + 24 encoder layers, d_model 1024, 16 heads (MHA), d_ff 4096,
-vocab 51865, learned positions, no RoPE.  Only the configuration is
-ported: the workloads' text-to-text service sizes a stage from it.  The
-port has no CROSS blocks, encoder or learned positions (ROADMAP.md Queue
-A 3), so building its model raises ``NotImplementedError``.
+vocab 51865, no RoPE.  ``learned_pos_emb``: the tokens get the same
+sinusoidal table as the encoder's frames, at their absolute positions, as
+in the reference (no learned table).  The mel-spectrogram and conv front
+end is a stub: a prefill takes the (B, 1500, d_model) frame embeddings.
+The second stage of the workloads' text-to-text service.
 """
 from repro_torch.configs.base import CROSS, ModelConfig, register
 

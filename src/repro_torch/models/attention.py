@@ -1,4 +1,5 @@
-"""Attention sub-block: GQA/MHA projections, qk-norm, RoPE, KV cache.
+"""Attention sub-block: GQA/MHA projections, qk-norm, RoPE, KV cache, and
+the encoder-decoder's cross-attention.
 
 Prefill attention goes through ``kernels.ops.flash_attention`` and decode
 attention through ``kernels.ops.decode_attention`` (the Hopper kernels on
@@ -131,3 +132,51 @@ def attn_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor],
         raise ValueError(f"attention mode {mode!r}")
     out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return out @ p["wo"], new_cache
+
+
+def encode_cross_kv(enc_out: torch.Tensor, p: Mapping[str, torch.Tensor],
+                    cfg: ModelConfig) -> KVCache:
+    """The cross-attention K/V (B, S_enc, KVH, hd) of the encoder's output
+    (B, S_enc, d), computed once per prefill (no RoPE, no k-norm, as the
+    reference)."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = enc_out @ p["wk"]
+    v = enc_out @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return KVCache(k=k.reshape(b, s, cfg.num_kv_heads, hd),
+                   v=v.reshape(b, s, cfg.num_kv_heads, hd))
+
+
+def cross_attn_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor],
+                       cfg: ModelConfig, enc_kv: KVCache, *,
+                       mode: str = "prefill",
+                       attention: AttentionFn = ops.flash_attention,
+                       decode_attention: DecodeAttentionFn =
+                       ops.decode_attention) -> torch.Tensor:
+    """Cross-attention: queries from x (B, S, d), K/V the encoder's
+    (``encode_cross_kv``), every key visible.  Returns (B, S, d).
+
+    Prefill goes through ``attention`` with ``causal=False``.  Decode
+    (x (B, 1, d)) goes through ``decode_attention`` with ``valid`` the
+    whole encoder length: for one query token that is the reference's
+    non-causal ``flash_attn`` at Sq = 1, and it is the shape the decode
+    kernel is built for (the prefill kernel would fill one of its 128
+    query rows).  The port makes this choice; the reference runs
+    ``flash_attn`` in both modes."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(b, s, cfg.num_heads, hd)
+    if cfg.qk_norm:
+        q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if mode == "decode":
+        out = decode_attention(q, enc_kv.k, enc_kv.v, enc_kv.k.shape[1])
+    elif mode == "prefill":
+        out = attention(q, enc_kv.k, enc_kv.v, causal=False, window=None)
+    else:
+        raise ValueError(f"cross-attention mode {mode!r}")
+    return out.reshape(b, s, cfg.num_heads * hd) @ p["wo"]

@@ -1,16 +1,20 @@
-"""Decoder-only model stacks: ATTN blocks with a SwiGLU MLP, MAMBA blocks
-with a SwiGLU or MoE MLP, and the xLSTM blocks (MLSTM, SLSTM) with none.
+"""Model stacks: ATTN blocks with a SwiGLU MLP, MAMBA blocks with a SwiGLU
+or MoE MLP, the xLSTM blocks (MLSTM, SLSTM) with none, and the
+encoder-decoder's CROSS blocks with their encoder.
 
 The port of ``repro/models/transformer.py`` for the architectures whose
 patterns are made of those kinds: the serving path's qwen3-0.6b and
 qwen1.5-0.5b (``(ATTN,)``, dense MLP), the sliding-window starcoder2-3b
-(``(ATTN,)``, dense MLP, window 4096), xlstm-1.3b (7 MLSTM + 1 SLSTM) and
-jamba-v0.1-52b (7 MAMBA + 1 ATTN, every other MLP a mixture of experts).
-Entry points: ``serve_prefill`` (the prompt) and ``serve_decode`` (one
-token per sequence after it).
+(``(ATTN,)``, dense MLP, window 4096), xlstm-1.3b (7 MLSTM + 1 SLSTM),
+jamba-v0.1-52b (7 MAMBA + 1 ATTN, every other MLP a mixture of experts)
+and whisper-medium (24 CROSS decoder layers over a 24-layer encoder,
+sinusoidal positions instead of RoPE).
+Entry points: ``serve_prefill`` (the prompt, and for an encoder-decoder
+the encoder's frames) and ``serve_decode`` (one token per sequence after
+it).
 The reference scans one superblock over stacked parameters; here the
 layers are a plain Python loop over a ``ModuleList``, layer ``li`` of
-kind ``block_pattern[li % period]``.
+kind ``block_pattern[li % period]``, and the encoder's layers another.
 
 Weights keep the reference's ``(in, out)`` layout and are applied as
 ``x @ W`` (not transposed to ``nn.Linear``'s ``(out, in)``), so a
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import (ATTN, MAMBA, MLSTM, SLSTM,
+from repro_torch.configs.base import (ATTN, CROSS, MAMBA, MLSTM, SLSTM,
                                      ModelConfig)
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
@@ -42,13 +46,20 @@ from repro_torch.models.xlstm import MLSTMFn, MLSTMState, SLSTMState
 
 LayerState = Union[KVCache, MambaState, MLSTMState, SLSTMState]
 # (block kind, MLP kind) pairs the port implements
-PORTED_KINDS = {(ATTN, "dense"), (MAMBA, "dense"), (MAMBA, "moe"),
-                (MLSTM, "none"), (SLSTM, "none")}
+PORTED_KINDS = {(ATTN, "dense"), (CROSS, "dense"), (MAMBA, "dense"),
+                (MAMBA, "moe"), (MLSTM, "none"), (SLSTM, "none")}
+# a CROSS layer's cross-attention leaves carry this prefix in its flat
+# parameter dict (``cross_wq`` ... beside the self-attention's ``wq``)
+CROSS_PREFIX = "cross_"
 
 
 class ModelCache(NamedTuple):
     layers: List[LayerState]  # one state per layer, of the layer's kind
     pos: int                  # tokens already processed
+    # encoder-decoder: per layer, a CROSS layer's encoder K/V (B, S_enc,
+    # KVH, hd), computed once by the prefill and read by every decode
+    # step (None for other layers); None for a decoder-only model
+    cross: Optional[List[Optional[KVCache]]] = None
 
 
 def decode_cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -64,27 +75,37 @@ def decode_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 def _check_ported(cfg: ModelConfig) -> None:
     kinds = set(zip(cfg.block_pattern, cfg.mlp_pattern))
-    if not kinds <= PORTED_KINDS or cfg.encoder_decoder \
-            or cfg.learned_pos_emb:
+    if not kinds <= PORTED_KINDS:
         raise NotImplementedError(
-            f"{cfg.name}: only ATTN blocks with a dense MLP, MAMBA blocks "
-            f"with a dense or MoE MLP and MLSTM/SLSTM blocks without one "
-            f"are ported")
+            f"{cfg.name}: only ATTN and CROSS blocks with a dense MLP, "
+            f"MAMBA blocks with a dense or MoE MLP and MLSTM/SLSTM blocks "
+            f"without one are ported, not {sorted(kinds - PORTED_KINDS)}")
+
+
+def _attn_shapes(cfg: ModelConfig) -> dict:
+    """Names and shapes of one attention's projections (and biases and
+    qk-norm scales, where the config has them)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    shapes = dict(wq=(d, h * hd), wk=(d, kvh * hd), wv=(d, kvh * hd),
+                  wo=(h * hd, d))
+    if cfg.qkv_bias:
+        shapes.update(bq=(h * hd,), bk=(kvh * hd,), bv=(kvh * hd,))
+    if cfg.qk_norm:
+        shapes.update(q_norm=(hd,), k_norm=(hd,))
+    return shapes
 
 
 def _layer_shapes(cfg: ModelConfig, kind: str, mlp_kind: str) -> dict:
     """Parameter names and shapes of one layer of ``kind``."""
     d = cfg.d_model
     shapes = {"norm1": (d,)}
-    if kind == ATTN:
-        hd = cfg.resolved_head_dim
-        h, kvh = cfg.num_heads, cfg.num_kv_heads
-        shapes.update(wq=(d, h * hd), wk=(d, kvh * hd), wv=(d, kvh * hd),
-                      wo=(h * hd, d))
-        if cfg.qkv_bias:
-            shapes.update(bq=(h * hd,), bk=(kvh * hd,), bv=(kvh * hd,))
-        if cfg.qk_norm:
-            shapes.update(q_norm=(hd,), k_norm=(hd,))
+    if kind in (ATTN, CROSS):
+        shapes.update(_attn_shapes(cfg))
+        if kind == CROSS:
+            shapes["norm_cross"] = (d,)
+            shapes.update({CROSS_PREFIX + n: s
+                           for n, s in _attn_shapes(cfg).items()})
     elif kind == MAMBA:
         shapes.update(ssm_mod.mamba_param_shapes(cfg))
     elif kind == MLSTM:
@@ -97,6 +118,13 @@ def _layer_shapes(cfg: ModelConfig, kind: str, mlp_kind: str) -> dict:
     elif mlp_kind == "moe":
         shapes.update(norm2=(d,), **moe_mod.moe_param_shapes(cfg))
     return shapes
+
+
+def cross_params(p: Mapping[str, torch.Tensor]) -> dict:
+    """A CROSS layer's cross-attention leaves under the names
+    ``attention.cross_attn_forward`` reads (``cross_wq`` -> ``wq``)."""
+    return {n[len(CROSS_PREFIX):]: t for n, t in p.items()
+            if n.startswith(CROSS_PREFIX)}
 
 
 def _param_dtype(name: str, kind: str, mlp_kind: str,
@@ -127,6 +155,10 @@ def param_bytes(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16
             cfg.mlp_pattern[li % period]
         total += sum(nbytes(s, _param_dtype(n, kind, mlp_kind, dtype))
                      for n, s in _layer_shapes(cfg, kind, mlp_kind).items())
+    if cfg.encoder_decoder:
+        total += nbytes((d,), dtype) + cfg.num_encoder_layers * sum(
+            nbytes(s, dtype)
+            for s in _layer_shapes(cfg, ATTN, "dense").values())
     return total
 
 
@@ -157,6 +189,8 @@ class Transformer(nn.Module):
         def make(name, shape, kind=ATTN, mlp_kind="none"):
             pdtype = _param_dtype(name, kind, mlp_kind, dtype)
             kw = dict(dtype=pdtype, device=self.device)
+            if name.startswith(CROSS_PREFIX):
+                name = name[len(CROSS_PREFIX):]
             if gen is None:
                 t = torch.empty(shape, **kw)
             elif "norm" in name:
@@ -192,11 +226,29 @@ class Transformer(nn.Module):
             nn.ParameterDict({n: make(n, s, kind, mlp_kind) for n, s in
                               _layer_shapes(cfg, kind, mlp_kind).items()})
             for kind, mlp_kind in self.kinds)
+        # the encoder (encoder-decoder only): ATTN layers with a dense MLP,
+        # run without a mask, then a final norm
+        n_enc = cfg.num_encoder_layers if cfg.encoder_decoder else 0
+        enc_shapes = _layer_shapes(cfg, ATTN, "dense")
+        self.enc_layers = nn.ModuleList(
+            nn.ParameterDict({n: make(n, s, mlp_kind="dense")
+                              for n, s in enc_shapes.items()})
+            for _ in range(n_enc))
+        self.enc_final_norm = make("enc_final_norm", (d,)) if n_enc \
+            else None
 
     # ---- embedding / head ---------------------------------------------
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens.long()]
+    def embed_tokens(self, tokens: torch.Tensor,
+                     positions: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """Token embeddings; with ``learned_pos_emb`` the sinusoidal table
+        at ``positions`` added, as the reference does (no learned
+        table)."""
+        h = self.embed[tokens.long()]
+        if self.cfg.learned_pos_emb and positions is not None:
+            h = h + sinusoidal_pos(positions, self.cfg.d_model).to(h.dtype)
+        return h
 
     def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -211,7 +263,7 @@ class Transformer(nn.Module):
         s_cache = decode_cache_len(cfg, seq_len)
         caches: List[LayerState] = []
         for kind, _ in self.kinds:
-            if kind == ATTN:
+            if kind in (ATTN, CROSS):
                 caches.append(attn_mod.make_kv_cache(
                     batch, s_cache, cfg.num_kv_heads, cfg.resolved_head_dim,
                     self.dtype, self.device))
@@ -229,15 +281,17 @@ class Transformer(nn.Module):
     def _block(self, h: torch.Tensor, p: Mapping[str, torch.Tensor],
                kind: str, mlp_kind: str, *, mode: str, positions,
                cache: LayerState, pos: Optional[int] = None,
+               cross_kv: Optional[KVCache] = None,
                attention: AttentionFn = ops.flash_attention,
                decode_attention: DecodeAttentionFn = ops.decode_attention,
                mlstm: MLSTMFn = ops.mlstm_chunk, ssm: SSMFn = ops.ssm_scan):
         """One layer, ``mode`` "prefill" (the segment) or "decode" (one
-        token at position ``pos``)."""
+        token at position ``pos``).  A CROSS layer attends to ``cross_kv``
+        (the encoder's K/V) after its causal self-attention."""
         cfg = self.cfg
         x = rms_norm(h, p["norm1"], cfg.norm_eps)
         decode = mode == "decode"
-        if kind == ATTN:
+        if kind in (ATTN, CROSS):
             out, new_cache = attn_mod.attn_forward(
                 x, p, cfg, positions=positions, mode=mode, cache=cache,
                 pos=pos, attention=attention,
@@ -253,6 +307,11 @@ class Transformer(nn.Module):
             out, new_cache = (xlstm_mod.slstm_decode if decode
                               else xlstm_mod.slstm_mix)(x, p, cfg, cache)
         h = h + out
+        if kind == CROSS:
+            xc = rms_norm(h, p["norm_cross"], cfg.norm_eps)
+            h = h + attn_mod.cross_attn_forward(
+                xc, cross_params(p), cfg, cross_kv, mode=mode,
+                attention=attention, decode_attention=decode_attention)
         if mlp_kind == "dense":
             x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
             h = h + swiglu_mlp(x2, p["w_gate"], p["w_up"], p["w_down"])
@@ -262,33 +321,73 @@ class Transformer(nn.Module):
                      else moe_mod.moe_forward(x2, p, cfg)[0])
         return h, new_cache
 
+    def encode(self, frames: torch.Tensor,
+               attention: AttentionFn = ops.flash_attention
+               ) -> torch.Tensor:
+        """The encoder: frames (B, S_enc, d), the stubbed front end's
+        embeddings, plus the sinusoidal table at 0..S_enc-1, then per
+        layer RMSNorm -> QKV -> attention with no mask -> ``wo`` ->
+        residual, RMSNorm -> SwiGLU -> residual; then ``enc_final_norm``.
+        ``attention`` is called with ``causal=False``."""
+        cfg = self.cfg
+        if not cfg.encoder_decoder:
+            raise ValueError(f"{cfg.name} has no encoder")
+        b, s, _ = frames.shape
+        positions = torch.arange(s, device=frames.device)[None]
+        h = frames + sinusoidal_pos(positions, cfg.d_model).to(frames.dtype)
+        for p in self.enc_layers:
+            x = rms_norm(h, p["norm1"], cfg.norm_eps)
+            q, k, v = attn_mod.project_qkv(x, p, cfg, None)
+            out = attention(q, k, v, causal=False, window=None)
+            h = h + out.reshape(b, s, -1) @ p["wo"]
+            x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
+            h = h + swiglu_mlp(x2, p["w_gate"], p["w_up"], p["w_down"])
+        return rms_norm(h, self.enc_final_norm, cfg.norm_eps)
+
     def serve_prefill(self, tokens: torch.Tensor,
                       cache_len: Optional[int] = None,
+                      frames: Optional[torch.Tensor] = None,
                       attention: AttentionFn = ops.flash_attention,
                       mlstm: MLSTMFn = ops.mlstm_chunk,
                       ssm: SSMFn = ops.ssm_scan):
         """Process the prompt (B, S) and build the decode cache.
 
-        Returns (last-token logits (B, V), ModelCache with pos = S).
-        ``attention``, ``mlstm`` and ``ssm`` replace the attention op, the
-        mLSTM chunk op and the selective-scan op (same signatures as
-        ``ops.flash_attention``, ``ops.mlstm_chunk`` and ``ops.ssm_scan``),
-        e.g. by their plain versions for a check."""
+        Returns (last-token logits (B, V), ModelCache with pos = S).  An
+        encoder-decoder model needs ``frames`` (B, S_enc, d): the encoder
+        runs once, and each CROSS layer's K/V of its output go to the
+        cache's ``cross``.  ``attention``, ``mlstm`` and ``ssm`` replace
+        the attention op (every call: the encoder's, the self- and the
+        cross-attention), the mLSTM chunk op and the selective-scan op
+        (same signatures as ``ops.flash_attention``, ``ops.mlstm_chunk``
+        and ``ops.ssm_scan``), e.g. by their plain versions for a
+        check."""
+        cfg = self.cfg
+        if cfg.encoder_decoder != (frames is not None):
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder prefill needs the "
+                f"encoder's frames, and only it takes them")
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None]
         caches = self.init_cache(b, cache_len if cache_len is not None
                                  else s)
-        h = self.embed_tokens(tokens)
-        new_caches = []
+        enc_out = None if frames is None else self.encode(frames, attention)
+        h = self.embed_tokens(tokens, positions)
+        new_caches, cross = [], []
         for p, (kind, mlp_kind), cache in zip(self.layers, self.kinds,
                                                caches):
+            ckv = attn_mod.encode_cross_kv(enc_out, cross_params(p), cfg) \
+                if kind == CROSS else None
             h, c = self._block(h, p, kind, mlp_kind, mode="prefill",
                                positions=positions, cache=cache,
-                               attention=attention, mlstm=mlstm, ssm=ssm)
+                               cross_kv=ckv, attention=attention,
+                               mlstm=mlstm, ssm=ssm)
             new_caches.append(c)
-        h = rms_norm(h[:, -1:], self.final_norm, self.cfg.norm_eps)
+            cross.append(ckv)
+        h = rms_norm(h[:, -1:], self.final_norm, cfg.norm_eps)
         logits = self.lm_logits(h)[:, 0]
-        return logits, ModelCache(layers=new_caches, pos=s)
+        return logits, ModelCache(layers=new_caches, pos=s,
+                                  cross=cross if enc_out is not None
+                                  else None)
 
     def serve_decode(self, tokens: torch.Tensor, cache: ModelCache,
                      decode_attention: DecodeAttentionFn =
@@ -299,27 +398,58 @@ class Transformer(nn.Module):
         Runs after ``serve_prefill`` (with ``cache_len`` = prompt + new
         tokens, or any length for a sliding-window model, whose cache is a
         ring of the window's size).  The new token sits at absolute
-        position ``cache.pos``: RoPE takes that position, and its k/v go to
-        ring slot ``pos % S_cache``.  Each attention layer's KV cache is
-        updated in place, so the ``cache`` handed in is advanced too and
-        must not be used again; the recurrent layers get new states.
-        ``decode_attention`` replaces the decode attention op (same
-        signature as ``ops.decode_attention``), e.g. by its plain version
-        for a check."""
+        position ``cache.pos``: RoPE (or the sinusoidal table) takes that
+        position, and its k/v go to ring slot ``pos % S_cache``.  Each
+        attention layer's KV cache is updated in place, so the ``cache``
+        handed in is advanced too and must not be used again; the
+        recurrent layers get new states.  A CROSS layer reads the encoder
+        K/V the prefill left in ``cache.cross`` (the encoder never runs
+        again).  ``decode_attention`` replaces the decode attention op
+        (same signature as ``ops.decode_attention``; every call, the
+        cross-attention's too), e.g. by its plain version for a check."""
         pos = cache.pos
         positions = torch.full((1, 1), pos, dtype=torch.long,
                                device=tokens.device)
-        h = self.embed_tokens(tokens[:, None])
+        h = self.embed_tokens(tokens[:, None], positions)
+        cross = cache.cross or [None] * len(self.layers)
         new_caches = []
-        for p, (kind, mlp_kind), state in zip(self.layers, self.kinds,
-                                               cache.layers):
+        for p, (kind, mlp_kind), state, ckv in zip(
+                self.layers, self.kinds, cache.layers, cross):
             h, c = self._block(h, p, kind, mlp_kind, mode="decode",
                                positions=positions, cache=state, pos=pos,
+                               cross_kv=ckv,
                                decode_attention=decode_attention)
             new_caches.append(c)
         h = rms_norm(h, self.final_norm, self.cfg.norm_eps)
         logits = self.lm_logits(h)[:, 0]
-        return logits, ModelCache(layers=new_caches, pos=pos + 1)
+        return logits, ModelCache(layers=new_caches, pos=pos + 1,
+                                  cross=cache.cross)
+
+
+def sinusoidal_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """positions (..., S) -> (..., S, d) fp32: sin then cos of the
+    positions at the frequencies exp(-log(1e4) i / max(d/2 - 1, 1)), i <
+    d/2, the reference's ``_sinusoidal_pos`` (the table both the encoder's
+    frames and, with ``learned_pos_emb``, the tokens get)."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _flat_block(blk: Mapping) -> dict:
+    """One pattern position's subtree of the reference, flattened to the
+    port's parameter names."""
+    flat = {"norm1": blk["norm1"], **blk["mix"]}
+    if "cross" in blk:
+        flat["norm_cross"] = blk["norm_cross"]
+        flat.update({CROSS_PREFIX + n: leaf
+                     for n, leaf in blk["cross"].items()})
+    if "mlp" in blk:
+        flat.update(norm2=blk["norm2"], **blk["mlp"])
+    return flat
 
 
 def from_jax_params(tree: Mapping, cfg: ModelConfig, *, device=None,
@@ -335,8 +465,11 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, *, device=None,
     ``dt_bias``, ``A_log`` and ``D``, the MoE ``router``).  The reference
     stacks each pattern position's layers on a leading superblock axis, so
     layer ``i * period + j`` is ``tree["blocks"][j][...][i]``; a layer's
-    ``mix`` tree (and ``mlp``, where it has one) flatten into its
-    parameter dict.  Weights stay ``(in, out)``.
+    ``mix`` tree (and ``mlp``, where it has one; a CROSS layer's
+    ``norm_cross`` and ``cross`` tree, as ``cross_*``) flatten into its
+    parameter dict.  An encoder-decoder's ``enc_blocks`` are stacked over
+    the encoder's layers, and ``enc_final_norm`` follows them.  Weights
+    stay ``(in, out)``.  A missing or extra leaf raises ``ValueError``.
     """
     model = Transformer(cfg, device=device, dtype=dtype, init=False)
 
@@ -347,6 +480,20 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, *, device=None,
         with torch.no_grad():
             param.copy_(torch.from_numpy(arr))
 
+    def put_layer(p: nn.ParameterDict, flat: dict, i: int, where: str):
+        if set(flat) != set(p.keys()):
+            raise ValueError(f"{where}: keys {sorted(flat)} != "
+                             f"{sorted(p.keys())}")
+        for name, leaf in flat.items():
+            put(p[name], np.asarray(leaf)[i])
+
+    top = {"embed", "final_norm", "blocks"}
+    if model.lm_head is not None:
+        top.add("lm_head")
+    if cfg.encoder_decoder:
+        top |= {"enc_blocks", "enc_final_norm"}
+    if set(tree) != top:
+        raise ValueError(f"top-level keys {sorted(tree)} != {sorted(top)}")
     put(model.embed, tree["embed"])
     put(model.final_norm, tree["final_norm"])
     if model.lm_head is not None:
@@ -354,13 +501,10 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, *, device=None,
     period = len(cfg.block_pattern)
     for li, p in enumerate(model.layers):
         i, j = divmod(li, period)
-        blk = tree["blocks"][j]
-        flat = {"norm1": blk["norm1"], **blk["mix"]}
-        if "mlp" in blk:
-            flat.update(norm2=blk["norm2"], **blk["mlp"])
-        if set(flat) != set(p.keys()):
-            raise ValueError(f"layer {li}: keys {sorted(flat)} != "
-                             f"{sorted(p.keys())}")
-        for name, leaf in flat.items():
-            put(p[name], np.asarray(leaf)[i])
+        put_layer(p, _flat_block(tree["blocks"][j]), i, f"layer {li}")
+    if cfg.encoder_decoder:
+        enc = _flat_block(tree["enc_blocks"])
+        for li, p in enumerate(model.enc_layers):
+            put_layer(p, enc, li, f"encoder layer {li}")
+        put(model.enc_final_norm, tree["enc_final_norm"])
     return model

@@ -79,7 +79,9 @@ class ModelStageServer:
     """One microservice stage: a model served via prefill scoring.
 
     The stage consumes a (B, seq_len) int32 token batch and emits the
-    (B,) int32 next-token ids (argmax of the last-token logits).
+    (B,) int32 next-token ids (argmax of the last-token logits); an
+    encoder-decoder's prefill also runs its encoder, over zero frames of
+    (B, ``encoder_seq_len``, d_model).
     ``process`` is thread-safe: several instances of one stage may run
     concurrently against the same (read-only) parameters.
 
@@ -121,8 +123,15 @@ class ModelStageServer:
                       dtype=self.dtype, params=self._params)))
 
     def _run(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
         with torch.inference_mode():
-            logits, _ = self.model.serve_prefill(tokens)
+            # an encoder-decoder stage scores the tokens against zero
+            # frames (the stubbed front end), as the reference's stage
+            frames = torch.zeros(
+                tokens.shape[0], cfg.encoder_seq_len, cfg.d_model,
+                dtype=self.dtype, device=tokens.device) \
+                if cfg.encoder_decoder else None
+            logits, _ = self.model.serve_prefill(tokens, frames=frames)
             out = torch.argmax(logits, dim=-1).to(torch.int32)
             if out.is_cuda:
                 # wait for this stage's own work only (releases the GIL)

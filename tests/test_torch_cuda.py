@@ -49,6 +49,11 @@ def card():
     (2, 300, 100, 4, 2, 128, True, 64, torch.bfloat16),
     # starcoder2-3b's heads and window, shortened
     (1, 600, 600, 24, 2, 128, True, 512, torch.bfloat16),
+    # whisper-medium: the encoder (no mask, 1,500 frames off the 128-key
+    # tile) and the cross-attention of 16 and 1 decoder tokens over it
+    (1, 1500, 1500, 16, 16, 64, False, None, torch.bfloat16),
+    (2, 16, 1500, 16, 16, 64, False, None, torch.bfloat16),
+    (2, 1, 1500, 16, 16, 64, False, None, torch.bfloat16),
 ])
 def test_cuda_kernel_matches_plain(card, b, sq, skv, h, kvh, hd, causal,
                                    window, dtype):
@@ -125,6 +130,53 @@ def test_cuda_prefill_runs_the_kernel_once_per_layer(card, arch):
     assert launched == cfg.num_layers
     assert torch.isfinite(logits).all()
     assert torch.equal(logits.argmax(-1), plain.argmax(-1))
+
+
+def test_cuda_whisper_prefill_and_decode_run_the_kernels(card):
+    """Reduced whisper-medium in fp32 on the card (device=None): a prefill
+    launches the prefill kernel for each encoder layer and twice per
+    decoder layer (self and cross), a decode step the decode kernel twice
+    per decoder layer; argmax equal to the plain ops' run."""
+    from repro_torch.models import Transformer
+    cfg = get_config("whisper-medium", reduced=True)
+    model = Transformer(cfg, dtype=torch.float32, seed=0)
+    assert model.device.type == "cuda"
+    tokens = torch.randint(0, cfg.vocab_size, (2, 20), generator=card,
+                           device="cuda", dtype=torch.int32)
+    frames = torch.randn(2, cfg.encoder_seq_len, cfg.d_model,
+                         generator=card, device="cuda")
+    with torch.inference_mode():
+        before = fa.LAUNCHES
+        logits, cache = model.serve_prefill(tokens, cache_len=23,
+                                            frames=frames)
+        launched = fa.LAUNCHES - before
+        plain, plain_cache = model.serve_prefill(
+            tokens, cache_len=23, frames=frames,
+            attention=ops.flash_attention_plain)
+        assert torch.equal(logits.argmax(-1), plain.argmax(-1))
+        before = dec.LAUNCHES
+        for _ in range(3):
+            t = logits.argmax(-1)
+            logits, cache = model.serve_decode(t, cache)
+            plain, plain_cache = model.serve_decode(
+                t, plain_cache, decode_attention=ops.decode_attention_plain)
+            assert torch.equal(logits.argmax(-1), plain.argmax(-1))
+        decoded = dec.LAUNCHES - before
+    assert launched == cfg.num_encoder_layers + 2 * cfg.num_layers
+    assert decoded == 2 * cfg.num_layers * 3
+    assert torch.isfinite(logits).all()
+
+
+def test_cuda_whisper_stage_serves_on_the_card(card):
+    from repro_torch.serving import ModelStageServer
+    stage = ModelStageServer("text-translation", "whisper-medium",
+                             seq_len=8, reduced=True)
+    before = fa.LAUNCHES
+    out = stage.process(torch.zeros(2, 8, dtype=torch.int32, device="cuda"))
+    assert fa.LAUNCHES - before == stage.cfg.num_encoder_layers \
+        + 2 * stage.cfg.num_layers
+    assert out.device.type == "cuda"
+    assert out.dtype == torch.int32 and out.shape == (2,)
 
 
 def test_cuda_stage_server_defaults_to_the_card(card):
@@ -250,6 +302,10 @@ def test_cuda_xlstm_prefill_runs_the_kernel_per_layer_and_chunk(card):
     (2, 7, 4, 2, 64, 7, torch.float32),
     (3, 40, 8, 1, 64, 1, torch.float32),
     (2, 9, 4, 2, 64, 0, torch.bfloat16),           # no valid slot: zeros
+    # whisper-medium's cross-attention step: the encoder's 1,500 slots,
+    # all valid from the first step (off the 32-slot tile), G 1
+    (4, 1500, 16, 16, 64, 1500, torch.bfloat16),
+    (4, 1500, 16, 16, 64, 1500, torch.float32),
 ])
 def test_cuda_decode_kernel_matches_plain(card, b, sc, h, kvh, hd, valid,
                                           dtype):
@@ -426,6 +482,29 @@ def test_cuda_camelot_session_serves_on_the_card(card):
     s = stats.summary()
     assert s["completed"] == 8 and s["failed"] == 0
     assert fa.LAUNCHES - before == layers * (stats.batches + 1)
+
+
+def test_cuda_text_to_text_session_serves_full_width(card):
+    """``CamelotSession.serve()`` on the suite's text-to-text service
+    builds qwen3-0.6b and whisper-medium at full width on the card and
+    serves every query; each batch launches the attention kernel 28 +
+    72 times (whisper: 24 encoder layers, 24 decoder layers twice)."""
+    from repro_torch.camelot import CamelotSession, ClusterSpec, SAConfig
+    from repro_torch.core import H100
+    from repro_torch.sim import workload_specs
+    sess = CamelotSession(workload_specs(H100)["text-to-text"],
+                          ClusterSpec(device=H100, devices=1), batch=4)
+    sess.profile()
+    res = sess.solve(policy="max-peak", sa=SAConfig(iterations=300, seed=0))
+    eng = sess.serve(result=res)
+    assert [st.cfg.name for st in eng.stages] == ["qwen3-0.6b",
+                                                  "whisper-medium"]
+    assert all(st.device.type == "cuda" for st in eng.stages)
+    before = fa.LAUNCHES
+    stats = eng.run_trace(sess.make_trace(8, qps=40.0, seed=1))
+    s = stats.summary()
+    assert s["completed"] == 8 and s["failed"] == 0
+    assert fa.LAUNCHES - before == (28 + 72) * (stats.batches + 1)
 
 
 # ---- the process backend's device arena: CUDA IPC between processes -------

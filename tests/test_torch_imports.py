@@ -96,6 +96,8 @@ def test_device_none_raises_without_cuda(monkeypatch):
         ModelStageServer("s", "qwen3-0.6b", seq_len=8, reduced=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Transformer(get_config("qwen3-0.6b", reduced=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Transformer(get_config("whisper-medium"))
 
 
 def test_unported_architecture_raises():

@@ -172,12 +172,22 @@ def test_param_counts_bit_equal(arch):
     assert counts[0] >= counts[2] > 0
 
 
-def test_whisper_medium_config_known_but_model_not_ported():
+def test_whisper_medium_stage_builds_pickles_and_serves():
+    """The suite's text-to-text second stage on the CPU (reduced): its
+    pickled replica (the process workers' rebuild) gives the same ids."""
+    import pickle
+    import torch
     from repro_torch.serving import ModelStageServer
-    assert dataclasses.asdict(port_configs.get_config("whisper-medium")) \
-        == dataclasses.asdict(ref_configs.get_config("whisper-medium"))
-    with pytest.raises(NotImplementedError, match="ported"):
-        ModelStageServer("s", "whisper-medium", reduced=True, device="cpu")
+    stage = ModelStageServer("text-translation", "whisper-medium",
+                             seq_len=16, reduced=True, device="cpu")
+    replica = pickle.loads(pickle.dumps(stage))
+    assert dataclasses.asdict(replica.cfg) == dataclasses.asdict(stage.cfg)
+    assert len(replica.model.enc_layers) == stage.cfg.num_encoder_layers
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, stage.cfg.vocab_size, (3, 16)).astype(np.int32))
+    ids = stage.process(toks)
+    assert ids.dtype == torch.int32 and ids.shape == (3,)
+    assert torch.equal(replica.process(toks), ids)
 
 
 # ---- ML models and predictors -----------------------------------------------

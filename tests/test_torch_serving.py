@@ -26,6 +26,7 @@ from repro.core.types import Placement as RefPlacement
 from repro.core.types import ServiceEdge as RefServiceEdge
 from repro.core.types import ServiceGraph as RefServiceGraph
 from repro.core.types import StageAlloc as RefStageAlloc
+from repro.models import serve_prefill as ref_serve_prefill
 from repro.serving import ModelStageServer as RefStageServer
 from repro.serving import PipelineEngine as RefPipelineEngine
 from repro.serving import make_trace as ref_make_trace
@@ -42,6 +43,8 @@ from repro_torch.serving import (ModelStageServer, MultiTenantEngine,
                                  PipelineEngine, make_trace)
 
 ARCHS = ("qwen3-0.6b", "qwen1.5-0.5b")
+# sim/workloads.py: the suite's text-to-text service
+TEXT_TO_TEXT = ("qwen3-0.6b", "whisper-medium")
 
 
 @pytest.fixture(scope="module")
@@ -112,9 +115,23 @@ def test_engine_consumes_allocation_with_placement(stages):
 
 def _fp32_pair(arch, seed=0):
     """The reference's stage server with its parameters cast to fp32, and
-    the port's server holding the same parameters."""
+    the port's server holding the same parameters.  The reference's
+    encoder-decoder stage makes bf16 zero frames for its bf16 parameters;
+    with them cast to fp32 its encoder needs fp32 frames (its layer scan
+    keeps one dtype), so that stage runs the reference's ``serve_prefill``
+    on fp32 zero frames, as the port's stage does in its dtype."""
     ref = RefStageServer(f"ref-{arch}", arch, seq_len=16, seed=seed)
     ref.params = jax.tree.map(lambda x: x.astype(jnp.float32), ref.params)
+    if ref.cfg.encoder_decoder:
+        cfg = ref.cfg
+
+        def run(params, tokens):
+            frames = jnp.zeros((tokens.shape[0], cfg.encoder_seq_len,
+                                cfg.d_model), jnp.float32)
+            logits, _ = ref_serve_prefill(params, tokens, cfg,
+                                          frames=frames)
+            return jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        ref._run = jax.jit(run)
     tree = jax.tree.map(lambda x: np.asarray(x, np.float32), ref.params)
     port = ModelStageServer(f"port-{arch}", arch, seq_len=16, seed=seed,
                             reduced=True, device="cpu", dtype=torch.float32,
@@ -122,7 +139,7 @@ def _fp32_pair(arch, seed=0):
     return ref, port
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("whisper-medium",))
 def test_stage_output_ids_match_reference(arch):
     ref, port = _fp32_pair(arch)
     toks = np.random.default_rng(0).integers(
@@ -149,6 +166,70 @@ def test_engine_matches_reference_engine(mech):
     s = eng.run_trace(make_trace(**args)).summary()
     assert s["completed"] == s_ref["completed"] == 12
     assert eng.channels[0].picks == ref_eng.channels[0].picks
+
+
+@pytest.mark.parametrize("mech", ["auto", "device"])
+def test_text_to_text_chain_matches_reference_engine(mech):
+    """qwen3-0.6b -> whisper-medium (both reduced, fp32 shared parameters;
+    the whisper stage runs its encoder over zero frames) through both
+    engines: equal completions, per-edge picks and, call by call, equal
+    stage inputs and output ids."""
+    pairs = [_fp32_pair(TEXT_TO_TEXT[0]), _fp32_pair(TEXT_TO_TEXT[1],
+                                                     seed=1)]
+    ref_stages = [_Recording(r) for r, _ in pairs]
+    stages = [_Recording(p) for _, p in pairs]
+    kw = dict(comm_mechanism=mech, qos_target=2.0, batch_timeout=0.5)
+    ref_eng = RefPipelineEngine(
+        ref_stages, allocation=_two_instance_alloc(
+            RefAllocation, RefStageAlloc, RefPlacement), **kw)
+    eng = PipelineEngine(stages, allocation=_two_instance_alloc(), **kw)
+    args = dict(n=12, qps=1e6, seq_len=16, vocab=pairs[0][0].cfg.vocab_size,
+                seed=3)
+    s_ref = ref_eng.run_trace(ref_make_trace(**args)).summary()
+    s = eng.run_trace(make_trace(**args)).summary()
+    assert s["completed"] == s_ref["completed"] == 12
+    assert s["failed"] == s_ref["failed"] == 0
+    assert eng.channels[0].picks == ref_eng.channels[0].picks
+    for st, ref_st in zip(stages, ref_stages):
+        assert st.row_map() == ref_st.row_map()
+
+
+def test_text_to_text_session_builds_and_serves_its_stages():
+    """``CamelotSession.serve()`` on the suite's text-to-text service
+    builds both stage servers from the nodes' archs, whisper-medium's
+    too (reduced, on the CPU), and serves every query."""
+    from repro_torch.camelot import CamelotSession, ClusterSpec, SAConfig
+    from repro_torch.sim import workload_specs
+    sess = CamelotSession(workload_specs(H100)["text-to-text"],
+                          ClusterSpec(device=H100, devices=1), batch=4)
+    sess.profile()
+    res = sess.solve("max-peak", sa=SAConfig(iterations=300, seed=0))
+    eng = sess.serve(result=res, reduced=True, device="cpu")
+    assert [st.cfg.name for st in eng.stages] == [
+        "qwen3-0.6b-smoke", "whisper-medium-smoke"]
+    s = eng.run_trace(sess.make_trace(8, 40.0, seed=1)).summary()
+    assert (s["completed"], s["failed"]) == (8, 0)
+
+
+def test_two_chains_multi_session_serves_on_its_own_stages():
+    """The suite's ``two-chains`` scenario (img-to-text + text-to-text)
+    through ``MultiServiceSession``: one joint solve on one H100, then
+    ``serve()`` builds the four reduced stage servers on the CPU and every
+    query of both tenants completes."""
+    from repro_torch.camelot import (ClusterSpec, MultiServiceSession,
+                                     SAConfig)
+    sess = MultiServiceSession(port_sim.multitenant_suite(H100)["two-chains"],
+                               ClusterSpec(device=H100, devices=1), batch=4)
+    sess.profile()
+    res = sess.solve("max-peak", sa=SAConfig(iterations=300, seed=0))
+    assert res.feasible
+    eng = sess.serve(result=res, reduced=True, device="cpu")
+    assert [[st.cfg.name for st in t.stages] for t in eng.tenants] == [
+        ["qwen1.5-0.5b-smoke", "xlstm-1.3b-smoke"],
+        ["qwen3-0.6b-smoke", "whisper-medium-smoke"]]
+    stats = eng.run_traces(sess.make_traces(8, [40.0, 40.0], seed=2))
+    assert [(s.summary()["completed"], s.summary()["failed"])
+            for s in stats] == [(8, 0), (8, 0)]
 
 
 class _RaisingStage:

@@ -575,7 +575,19 @@ def test_reduced_qwen_chain_serves_alike_in_processes():
     the same completions and edge picks as the threads backend, and the
     ``process`` calls of each stage, summed over the workers, are its
     batches (a ``ModelStageServer`` warm-up is not a ``process`` call)."""
-    stages = [_fp32_stage("qwen3-0.6b", 0), _fp32_stage("qwen1.5-0.5b", 1)]
+    _serves_alike_in_processes(
+        [_fp32_stage("qwen3-0.6b", 0), _fp32_stage("qwen1.5-0.5b", 1)])
+
+
+def test_reduced_text_to_text_chain_serves_alike_in_processes():
+    """The suite's text-to-text chain, qwen3-0.6b -> whisper-medium
+    (reduced, fp32): the workers rebuild the encoder-decoder stage from
+    its pickle and serve it as the threads backend does."""
+    _serves_alike_in_processes(
+        [_fp32_stage("qwen3-0.6b", 0), _fp32_stage("whisper-medium", 1)])
+
+
+def _serves_alike_in_processes(stages):
     pk = PKGS["port"]
     out = {}
     for backend in ("threads", "processes"):
