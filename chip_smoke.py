@@ -80,12 +80,15 @@ Phases, each printing one line per case:
      stage once (a whisper-medium call launches the attention kernel 72
      times: once per encoder layer, twice per decoder layer);
   7. decode: the decode-attention kernel against its plain version
-     (``check_decode``: G 1/2/4/12, hd 64/128, Sc 1 to 4096, valid from 0
+     (``check_decode``: G 1/2/4/12/24/48 (above 16, blocks of 16 heads
+     over the same slots), hd 64/128, Sc 1 to 4096, valid from 0
      to Sc and off the tile, bf16 on the tensor-core kernel and fp32 on
      the exact one, the cache in the model's strided layout), its times
      at the decode path's shapes (``time_decode``: qwen3-0.6b,
-     qwen1.5-0.5b and jamba-v0.1-52b at B 4, Sc 2080, starcoder2-3b at B
-     4, Sc 4096, whisper-medium's cross-attention at B 4 over the
+     qwen1.5-0.5b, jamba-v0.1-52b (and phi3.5-moe-42b-a6.6b),
+     chameleon-34b, qwen3-moe-30b-a3b and granite-34b (G 48) at B 4, Sc
+     2080, starcoder2-3b at B 4, Sc 4096, whisper-medium's
+     cross-attention at B 4 over the
      encoder's 1,500 slots, against ``scaled_dot_product_attention``,
      events and
      device time, and the kernel at other split targets), then
@@ -110,14 +113,24 @@ Phases, each printing one line per case:
      a first run held against the plain version, ``decode`` B 4, prompt
      2048, 32 steps) and in fp32 at one superblock
      (``decode_consistency``, B 1, prompt 512 + 16 steps);
+  9. the rest of the zoo, one model at a time in bf16 at full width
+     (``zoo_prefill``, ``decode``, ``zoo_memory``): qwen3-moe-30b-a3b,
+     chameleon-34b, granite-34b at 64 of its 88 layers and
+     phi3.5-moe-42b-a6.6b at 24 of its 32: a prefill at B 4, S 2048 with
+     every attention call held against the plain version, a timed and a
+     profiled one (wall and device ms, idle and attention's share), 8
+     decode steps as in phase 7, the weight bytes and the peak memory;
+     then ``examples/quickstart_torch.py --queries 4`` in a process of
+     its own (``quickstart``), which must exit 0;
 then a ``{"kernels": [...]}`` line (``launches``: each kernel's launches
 on its path, counted from 0 just before the path and read just after:
 the served traces for the prefill kernels, those of the ``serve`` phases
 plus the ``camelot`` phases' profiling and served trace and the facade
-phases' traces (each also beside it; ``launches_processes``: the
-process phases', counted in the workers), the timed decode steps for
-the decode kernel, the timed jamba prefill for the scan kernel; the other
-paths' counts beside them), the
+phases' traces and the zoo's timed prefills (each also beside it;
+``launches_processes``: the process phases', counted in the workers),
+the timed decode steps (the zoo's too) for the decode kernel, the timed
+jamba prefill for the scan kernel; the other paths' counts beside
+them), the
 ``nvidia-smi`` line again, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without that line.  It imports nothing of jax or of
@@ -208,12 +221,23 @@ PROFILE_TRIES = 3
 LEAD_IN_LOST: list = []             # lead-in records lost, per profile
 JAMBA = "jamba-v0.1-52b"
 WHISPER = "whisper-medium"
+QWEN_MOE = "qwen3-moe-30b-a3b"
+CHAMELEON = "chameleon-34b"
+GRANITE = "granite-34b"
+PHI = "phi3.5-moe-42b-a6.6b"
 JAMBA_LAYERS = 16
 JAMBA_CUT = ("num_layers 32 -> 16 (2 of 4 superblocks): 104 GB of bf16 "
              "weights do not fit one 80 GB card")
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One output line; a phase's line carries the script's elapsed
+    seconds (``t_s``), so a run shows where its time went."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - START}
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
 
 
@@ -262,7 +286,13 @@ CHECK_CASES = [
     (4, 2048, 2048, 16, 8, 128, True, None, torch.bfloat16),
     (4, 2048, 2048, 16, 16, 64, True, None, torch.bfloat16),
     # jamba-v0.1-52b's prefill: 32 query heads over 8 KV heads, no RoPE
+    # (and phi3.5-moe-42b-a6.6b's)
     (4, 2048, 2048, 32, 8, 128, True, None, torch.bfloat16),
+    # the rest of the zoo's prefills: chameleon-34b 64/8, qwen3-moe-30b-a3b
+    # 32/4, granite-34b's MQA 48/1
+    (4, 2048, 2048, 64, 8, 128, True, None, torch.bfloat16),
+    (4, 2048, 2048, 32, 4, 128, True, None, torch.bfloat16),
+    (4, 2048, 2048, 48, 1, 128, True, None, torch.bfloat16),
     # ragged and odd cases
     (2, 1, 1, 4, 2, 32, True, None, torch.float32),
     (2, 1, 77, 4, 2, 16, True, None, torch.float32),
@@ -402,7 +432,10 @@ def check_bshd(fa, ops) -> float:
 ATTN_TIME_SHAPES = [
     (2048, 2048, 16, 8, 128, True, None, "qwen3-0.6b"),
     (2048, 2048, 16, 16, 64, True, None, "qwen1.5-0.5b"),
-    (2048, 2048, 32, 8, 128, True, None, JAMBA),
+    (2048, 2048, 32, 8, 128, True, None, f"{JAMBA}, {PHI}"),
+    (2048, 2048, 64, 8, 128, True, None, CHAMELEON),
+    (2048, 2048, 32, 4, 128, True, None, QWEN_MOE),
+    (2048, 2048, 48, 1, 128, True, None, GRANITE),
     (4096, 4096, 24, 2, 128, True, 4096,
      "starcoder2-3b (decode path's prefill)"),
     (16, 16, 16, 8, 128, True, None, "qwen3-0.6b (serving)"),
@@ -928,14 +961,16 @@ def check_decode(dec) -> tuple:
     """The decode kernel against ``decode_attention_plain`` on the card,
     one line per (G, hd, Sc, dtype, layout), with the max error for each
     ``valid`` (0, 1, part of Sc, Sc - 3: off the 32-slot tile, Sc: a full
-    ring), then whisper-medium's cross-attention step (B 4, the encoder's
-    1,500 slots, 16/16/64); returns the largest error and the largest
-    error over its row's max |ref|."""
+    ring); G 24 and 48 run as two and three blocks of 16 heads over the
+    same slots (granite-34b's MQA is G 48); then whisper-medium's
+    cross-attention step (B 4, the encoder's 1,500 slots, 16/16/64);
+    returns the largest error and the largest error over its row's max
+    |ref|."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     b, kvh = 2, 2
     worst = (0.0, 0.0)
     for dtype in (torch.bfloat16, torch.float32):
-        for g in (1, 2, 4, 12):
+        for g in (1, 2, 4, 12, 24, 48):
             for hd in (64, 128):
                 for sc in (1, 7, 100, 2080, 4096):
                     layouts = ("model", "slice") if sc == 100 \
@@ -996,7 +1031,11 @@ def _check_decode_case(dec, gen, b, sc, h, kvh, hd, dtype, layout) -> tuple:
 DECODE_SHAPES = [("qwen3-0.6b", 16, 8, 128, 2080),
                  ("qwen1.5-0.5b", 16, 16, 64, 2080),
                  ("starcoder2-3b", 24, 2, 128, 4096),
-                 (JAMBA, 32, 8, 128, 2080),
+                 (f"{JAMBA}, {PHI}", 32, 8, 128, 2080),
+                 (CHAMELEON, 64, 8, 128, 2080),
+                 (QWEN_MOE, 32, 4, 128, 2080),
+                 # MQA: G 48, the kernel's three groups of 16 heads
+                 (GRANITE, 48, 1, 128, 2080),
                  # the cross-attention step over the encoder's output
                  ("whisper-medium (cross)", 16, 16, 64, 1500)]
 
@@ -1136,12 +1175,13 @@ def zero_frames(cfg, b: int, dtype):
 
 
 def decode_model(dec, ops, model, prompt: int, steps: int, gen,
-                 b: int = 4, **extra) -> int:
+                 b: int = 4, prof_steps: int = 8, **extra) -> int:
     """``serve_decode`` of ``model`` in bf16 after its prefill: a first
     run with every decode kernel call held against the plain version, a
     timed run (the count from 0 just before its steps) and a profiled
-    one; returns the decode kernel's launches in the timed steps.  An
-    encoder-decoder prefills over zero frames, as its stage does."""
+    one of ``prof_steps`` steps; returns the decode kernel's launches in
+    the timed steps.  An encoder-decoder prefills over zero frames, as
+    its stage does."""
     from repro_torch.configs import ATTN, CROSS
     cfg = model.cfg
     n_dec = decode_launches_per_step(cfg)
@@ -1173,7 +1213,7 @@ def decode_model(dec, ops, model, prompt: int, steps: int, gen,
         in_place = k_ptr is None or cache.layers[ai].k.data_ptr() == k_ptr
         del cache
         # run 3, profiled: device time of a few steps
-        prof_steps = min(8, steps)
+        prof_steps = min(prof_steps, steps)
         logits, cache = model.serve_prefill(tokens, cache_len=prompt + steps,
                                             frames=frames)
         torch.cuda.synchronize()
@@ -1392,8 +1432,12 @@ def checking_attention_op(ops, errs: dict):
     hands the kernel's result on."""
     def op(q, k, v, *, causal=True, window=None):
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
-        ref = ops.flash_attention_plain(q, k, v, causal=causal,
-                                        window=window).float()
+        # the plain version one sequence at a time: its fp32 score matrix
+        # for a whole batch of chameleon-34b's 64 heads at S 2048 (4.3 GB,
+        # twice over) does not fit beside the 68.6 GB of weights
+        ref = torch.cat([ops.flash_attention_plain(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=causal,
+            window=window).float() for i in range(q.shape[0])])
         tol, row_tol = TOL[q.dtype], ROW_TOL[q.dtype]
         diff = (out.float() - ref).abs()
         row_max = ref.abs().amax(-1, keepdim=True)
@@ -1541,6 +1585,155 @@ def prefill_jamba(sm, fa, ops, Transformer, get_config, param_bytes):
                              f"{ids_plain.tolist()}")
     del logits, plain, checked
     return model, launches
+
+
+# --------------------------------------------------------------------------
+# phase 9: the rest of the model zoo, then the quickstart twin
+# --------------------------------------------------------------------------
+
+# (arch, layers served (None: all), the depth cut, seed); each B 4, a
+# prompt of ZOO_PROMPT tokens and ZOO_STEPS decode steps, bf16
+ZOO_RUNS = [
+    (QWEN_MOE, None, None, 21),
+    (CHAMELEON, None, None, 22),
+    (GRANITE, 64, "num_layers 88 -> 64: 93.9 GB of bf16 weights do not "
+                  "fit one 80 GB card", 23),
+    (PHI, 24, "num_layers 32 -> 24: 83.7 GB of bf16 weights do not fit "
+              "one 80 GB card", 24),
+]
+ZOO_PROMPT, ZOO_STEPS = 2048, 8
+
+
+def zoo_phase(fa, dec, ops, Transformer, get_config, param_bytes) -> tuple:
+    """qwen3-moe-30b-a3b, chameleon-34b, granite-34b (64 of 88 layers) and
+    phi3.5-moe-42b-a6.6b (24 of 32) at full width in bf16, random weights
+    from the model's seeded generator on the card, one model at a time
+    (each freed before the next): a prefill at B 4, S 2048 with every
+    attention call held against the plain version, a timed one (the count
+    from 0 just before it) and a profiled one (device ms, attention's
+    share), then ``decode_model``'s 8 steps.  Prints the weight bytes and
+    the peak memory.  Returns the prefill kernel's launches in each timed
+    prefill and the decode kernel's in each model's timed steps."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    b, s = 4, ZOO_PROMPT
+    prefills, decodes = {}, {}
+    for arch, layers, cut, seed in ZOO_RUNS:
+        full = get_config(arch)
+        cfg = full if layers is None \
+            else dataclasses.replace(full, num_layers=layers)
+        n_attn = decode_launches_per_step(cfg)
+        gc_collect()
+        torch.cuda.reset_peak_memory_stats()
+        free, _ = torch.cuda.mem_get_info()
+        need = param_bytes(cfg, torch.bfloat16)
+        if need > free:
+            raise AssertionError(f"{arch}: {need / 1e9} GB of parameters, "
+                                 f"{free / 1e9} GB free")
+        t0 = time.perf_counter()
+        model = Transformer(cfg, device="cuda", dtype=torch.bfloat16,
+                            seed=seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        errs: dict = {}
+        with torch.inference_mode():
+            # run 1: every attention call held against the plain version
+            checked, cache = model.serve_prefill(
+                tokens, cache_len=s + ZOO_STEPS,
+                attention=checking_attention_op(ops, errs))
+            del cache
+            torch.cuda.synchronize()
+            fa.LAUNCHES = 0               # the timed prefill only
+            t0 = time.perf_counter()
+            logits, cache = model.serve_prefill(tokens,
+                                                cache_len=s + ZOO_STEPS)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            prefills[arch] = fa.LAUNCHES
+            del cache
+            device_ms, kernels = device_profile(
+                lambda: model.serve_prefill(tokens, cache_len=s + ZOO_STEPS),
+                expect={ATTN_KERNEL: n_attn})
+        prefill_peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all())
+        attn_ms = sum(t for name, _, t in kernels if ATTN_KERNEL in name)
+        emit({"phase": "zoo_prefill", "arch": arch, "cut": cut,
+              "layers": cfg.num_layers,
+              "published_layers": full.num_layers, "b": b, "s": s,
+              "dtype": "bfloat16", "h": cfg.num_heads,
+              "kvh": cfg.num_kv_heads, "hd": cfg.resolved_head_dim,
+              "moe": None if cfg.moe is None else
+              [cfg.moe.num_experts, cfg.moe.top_k],
+              "weight_bytes": weight_bytes, "param_bytes": need,
+              "full_depth_param_gb": param_bytes(full, torch.bfloat16) / 1e9,
+              "init_s": init_s, "prefill_wall_ms": prefill_s * 1e3,
+              "device_ms": device_ms,
+              "device_idle_share": max(0.0, 1 - device_ms
+                                       / (prefill_s * 1e3)),
+              "device_launches": sum(n for _, n, _ in kernels),
+              "attention_kernel_ms": attn_ms,
+              "attention_kernel_share": attn_ms / device_ms,
+              "attention_launches": prefills[arch],
+              "attention_errs_vs_plain": errs,
+              "checked_run_equal": bool(torch.equal(checked, logits)),
+              "peak_gb": prefill_peak / 1e9, "finite": finite,
+              "logits_shape": list(logits.shape),
+              "top_device_kernels": kernels[:6]})
+        if logits.shape != (b, cfg.vocab_size) or not finite:
+            raise AssertionError(f"{arch}: bad prefill logits")
+        if prefills[arch] != n_attn:
+            raise AssertionError(f"{arch}: {prefills[arch]} attention "
+                                 f"launches for {n_attn} layers")
+        if errs.get("calls") != n_attn or not errs["worst_ratio"] <= 1 \
+                or not errs["worst_row_ratio"] <= 1:
+            raise AssertionError(f"{arch}: an attention call of the checked "
+                                 f"run disagrees with the plain version: "
+                                 f"{errs}")
+        del logits, checked
+        # the profile of 2 steps: qwen3-moe's ~20,000 launches a step make
+        # the profiler's own work the phase's largest cost
+        decodes[arch] = decode_model(dec, ops, model, s, ZOO_STEPS, gen,
+                                     prof_steps=2, cut=cut)
+        emit({"phase": "zoo_memory", "arch": arch,
+              "weight_gb": weight_bytes / 1e9,
+              "prefill_peak_gb": prefill_peak / 1e9,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "card_gb": torch.cuda.get_device_properties(0).total_memory
+              / 1e9})
+        del model
+        gc_collect()
+    return prefills, decodes
+
+
+def quickstart_phase() -> dict:
+    """``examples/quickstart_torch.py --queries 4`` in a process of its own,
+    at full width on the card (the Camelot loop through the facade on the
+    text-to-text chain and the diamond, each min-resource allocation
+    replayed live, then the multi-tenant solve); a nonzero exit fails the
+    run."""
+    root = Path(__file__).resolve().parent
+    gc_collect()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(root / "examples" / "quickstart_torch.py"),
+         "--queries", "4"], cwd=root, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=600)
+    lines = proc.stdout.splitlines()
+    row = {"phase": "quickstart", "returncode": proc.returncode,
+           "seconds": time.perf_counter() - t0,
+           "live_replays": [ln.strip() for ln in lines
+                            if "live replay" in ln],
+           "stdout_tail": lines[-6:],
+           "stderr_tail": proc.stderr.splitlines()[-12:]}
+    emit(row)
+    if proc.returncode != 0 or len(row["live_replays"]) != 2 \
+            or not all(ln.endswith("completed 4")
+                       for ln in row["live_replays"]):
+        raise AssertionError(f"quickstart_torch.py failed: {row}")
+    return row
 
 
 def gc_collect() -> None:
@@ -2475,6 +2668,14 @@ def main() -> int:
         {"cut": "num_layers 32 -> 8 (1 of 4 superblocks): 53 GB in fp32",
          "capacity_factor": moe.capacity_factor})], seed=16)
 
+    # the rest of the zoo: its timed prefills count the prefill kernel
+    # from 0 each, its timed decode steps the decode kernel; then the
+    # quickstart twin in a process of its own
+    launches_zoo_prefill, launches_zoo_decode = zoo_phase(
+        fa, dec, ops, Transformer, get_config, param_bytes)
+    launches_decode.update(launches_zoo_decode)
+    quickstart_phase()
+
     main_row = timing[0]
     attn_serve = first["flash_attention_bhsd"] \
         + second["flash_attention_bhsd"] + third["flash_attention_bhsd"]
@@ -2496,7 +2697,8 @@ def main() -> int:
         "launches": attn_serve + camelot_first["flash_attention_bhsd"]
         + camelot_second["flash_attention_bhsd"]
         + camelot_third["flash_attention_bhsd"]
-        + sum(facade_by["flash_attention_bhsd"].values()),
+        + sum(facade_by["flash_attention_bhsd"].values())
+        + sum(launches_zoo_prefill.values()),
         "launches_serve": attn_serve,
         "launches_facade": facade_by["flash_attention_bhsd"],
         "launches_processes": sum(
@@ -2513,6 +2715,7 @@ def main() -> int:
         "launches_prefill": launches_prefill,
         "launches_prefill_whisper": launches_prefill_whisper,
         "launches_jamba_prefill": launches_jamba["flash_attention_bhsd"],
+        "launches_zoo_prefill": launches_zoo_prefill,
         "launches_decode_path_prefills":
             launches_decode_prefills["flash_attention_bhsd"],
         "max_abs_err": worst,

@@ -4,10 +4,11 @@ Each architecture the port knows gets one module in this package that
 builds a ``ModelConfig`` via :func:`register`.  ``get_config(name)``
 returns the full published configuration; ``get_config(name, reduced=True)``
 returns the small variant of the same family (one superblock, d_model <=
-256) that the CPU tests use.  Any other name raises ``KeyError``.  Every
-configuration registered here has its model ported
-(``models/transformer.py``); a block kind the models do not implement
-raises ``NotImplementedError`` when its model is built
+256) that the CPU tests use.  The port registers every architecture of
+the reference, each with its model ported (``models/transformer.py``); a
+name that neither knows raises ``KeyError``.  A configuration made by hand
+with a block kind the models do not implement raises
+``NotImplementedError`` when its model is built
 (``models/transformer.py:_check_ported``).
 """
 from __future__ import annotations
@@ -17,8 +18,9 @@ from dataclasses import dataclass, replace
 from typing import Callable, Optional, Sequence
 
 
-# Block kinds (the port's models implement ATTN and CROSS with a dense MLP,
-# MAMBA with a dense or MoE MLP, and MLSTM and SLSTM with none)
+# Block kinds (the port's models implement ATTN with a dense or MoE MLP,
+# CROSS with a dense MLP, MAMBA with a dense or MoE MLP, and MLSTM and SLSTM
+# with none)
 ATTN = "attn"          # (causal or bidirectional) self-attention block
 CROSS = "cross"        # decoder block with self + cross attention (enc-dec)
 MAMBA = "mamba"        # Mamba selective-SSM block
@@ -128,9 +130,13 @@ _REDUCERS: dict[str, Callable[[ModelConfig], ModelConfig]] = {}
 
 # the configurations the port knows, each with its model ported
 _MODULES = {
+    "chameleon-34b": "chameleon_34b",
+    "granite-34b": "granite_34b",
     "jamba-v0.1-52b": "jamba_v0p1_52b",
+    "phi3.5-moe-42b-a6.6b": "phi3p5_moe_42b_a6p6b",
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "qwen3-0.6b": "qwen3_0p6b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "starcoder2-3b": "starcoder2_3b",
     "whisper-medium": "whisper_medium",
     "xlstm-1.3b": "xlstm_1p3b",
@@ -181,8 +187,7 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     if name not in _REGISTRY:
         if name not in _MODULES:
             raise KeyError(
-                f"architecture {name!r} is not ported to repro_torch yet; "
-                f"known: {sorted(_MODULES)}")
+                f"unknown architecture {name!r}; known: {sorted(_MODULES)}")
         importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     cfg = _REGISTRY[name]
     if reduced:

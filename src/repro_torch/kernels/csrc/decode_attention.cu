@@ -17,7 +17,7 @@
 // would copy the whole cache in every layer at every step.
 //
 // What bounds it on an H100: every valid K and V row is read once, and
-// each row feeds only 2*G*hd FLOPs of QK^T and PV (G <= 16: at most 16
+// each row feeds only 2*G*hd FLOPs of QK^T and PV (G <= 48: at most 48
 // FLOP per byte in bf16), far below the card's ~295 FLOP/byte ridge.  So
 // the bound is the bytes of K and V up to `valid` over 3.35 TB/s: ~10 us
 // for qwen3-0.6b's and qwen1.5-0.5b's caches at B 4, Sc 2080, ~5 us for
@@ -26,10 +26,17 @@
 // KB in flight on each of the 132 SMs.
 //
 // Both kernels split the slots up to `valid` into `nsplit` chunks chosen
-// on the host (no split past `valid`, none empty; grid (B*KVH, nsplit)),
-// since B*KVH rows alone fill few SMs (8 for starcoder2-3b at B 4).  Each
-// block writes partial (acc, m, l) in fp32, and a second small kernel,
-// one block per (row, query head), combines them.
+// on the host (no split past `valid`, none empty), since B*KVH rows alone
+// fill few SMs (8 for starcoder2-3b at B 4).  A block packs at most GROUP
+// = 16 query heads, one m16 tile of the tensor cores: G > 16 (granite-34b's
+// MQA: 48 heads over one KV head) is cut into ceil(G / 16) groups of rows,
+// each its own block over the same K/V slots, with the per-warp arithmetic
+// of G <= 16 unchanged (grid (B*KVH, nsplit, groups)).  The groups read
+// the same K/V rows, ceil(G / 16) times, from L2 after the first; a
+// design that keeps ceil(G / 16) A fragments a warp and reads K/V once
+// is a later redesign.  Each block writes partial (acc, m, l) in fp32,
+// and a second small kernel, one block per (row, query head), combines
+// them.
 //
 // bf16 (decode_attention_bf16_kernel, the served path): four warps, each
 // with its own ring of K/V tiles of 32 slots in shared memory, in bf16 as
@@ -64,7 +71,8 @@ namespace {
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int TK = 32;          // slots per tile: one per lane
-constexpr int MAX_G = 16;       // query heads per KV head
+constexpr int GROUP = 16;       // query heads a block packs (one m16 tile)
+constexpr int MAX_G = 48;       // query heads per KV head: 3 groups
 constexpr float M_INIT = -1e30f;
 
 // the bf16 tensor-core kernel
@@ -159,15 +167,20 @@ decode_attention_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int VPT = TK * VROW / NTHREADS;    // loads per thread per tile
   static_assert(TK * VROW % NTHREADS == 0, "tile must split over threads");
   constexpr int GSTEP = NTHREADS / HD;         // threads per output column
-  constexpr int RG = (MAX_G + GSTEP - 1) / GSTEP;  // rows per thread in PV
-  constexpr int WG = MAX_G / NWARPS;           // rows per warp in QK^T
+  constexpr int RG = (GROUP + GSTEP - 1) / GSTEP;  // rows per thread in PV
+  constexpr int WG = GROUP / NWARPS;           // rows per warp in QK^T
 
+  // this block's query heads r0 .. r0 + gl - 1 of the row's g; the
+  // shared layout holds gs = min(g, GROUP) rows in every block
+  const int r0 = blockIdx.z * GROUP;
+  const int gl = min(GROUP, g - r0);
+  const int gs = min(g, GROUP);
   extern __shared__ float smem[];
   float* Qs = smem + L::q_off();
-  float* Ks = smem + L::k_off(g);
-  float* Vs = smem + L::v_off(g);
-  float* Ps = smem + L::p_off(g);
-  float* Cs = smem + L::corr_off(g);
+  float* Ks = smem + L::k_off(gs);
+  float* Vs = smem + L::v_off(gs);
+  float* Ps = smem + L::p_off(gs);
+  float* Cs = smem + L::corr_off(gs);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -179,8 +192,8 @@ decode_attention_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lo = split * chunk;
   const int hi = min(lo + chunk, n);
 
-  for (int i = tid; i < g * HD; i += NTHREADS)
-    Qs[i] = to_float(q[(size_t)row * g * HD + i]) * scale;
+  for (int i = tid; i < gl * HD; i += NTHREADS)
+    Qs[i] = to_float(q[((size_t)row * g + r0) * HD + i]) * scale;
 
   // softmax state of the rows this warp owns: g = warp + NWARPS * i
   float m_r[WG], l_r[WG];
@@ -230,14 +243,14 @@ decode_attention_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < WG; ++i) {
         const int gi = warp + NWARPS * i;
-        if (gi < g) s[i] = fmaf(Qs[gi * HD + dd], kv, s[i]);
+        if (gi < gl) s[i] = fmaf(Qs[gi * HD + dd], kv, s[i]);
       }
     }
     const bool in = t0 + lane < hi;
 #pragma unroll
     for (int i = 0; i < WG; ++i) {
       const int gi = warp + NWARPS * i;
-      if (gi < g) {
+      if (gi < gl) {
         const float x = in ? s[i] : -INFINITY;
         const float m_new = fmaxf(m_r[i], warp_max(x));
         const float p = expf(x - m_new);
@@ -254,7 +267,7 @@ decode_attention_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RG; ++i) {
       const int gi = g0 + GSTEP * i;
-      if (gi < g) {
+      if (gi < gl) {
         float a = acc[i] * Cs[gi];
 #pragma unroll 8
         for (int j = 0; j < TK; ++j) a = fmaf(Ps[gi * TK + j], Vs[j * HD + d], a);
@@ -267,15 +280,15 @@ decode_attention_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RG; ++i) {
     const int gi = g0 + GSTEP * i;
-    if (gi < g) part_acc[(base * g + gi) * HD + d] = acc[i];
+    if (gi < gl) part_acc[(base * g + r0 + gi) * HD + d] = acc[i];
   }
   if (lane == 0) {
 #pragma unroll
     for (int i = 0; i < WG; ++i) {
       const int gi = warp + NWARPS * i;
-      if (gi < g) {
-        part_ml[(base * g + gi) * 2] = m_r[i];
-        part_ml[(base * g + gi) * 2 + 1] = l_r[i];
+      if (gi < gl) {
+        part_ml[(base * g + r0 + gi) * 2] = m_r[i];
+        part_ml[(base * g + r0 + gi) * 2 + 1] = l_r[i];
       }
     }
   }
@@ -331,9 +344,9 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// One (row, split) per block; warp w walks tiles w, w + 4, ... of the
-// chunk with its own (acc, m, l), and the block merges the four at the
-// end into the split's partial.
+// One (row, split, group of query heads) per block; warp w walks tiles w,
+// w + 4, ... of the chunk with its own (acc, m, l), and the block merges
+// the four at the end into the split's partial of its group's heads.
 template <int HD>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 decode_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -354,6 +367,8 @@ decode_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane >> 2, tig = lane & 3;
   const int row = blockIdx.x, split = blockIdx.y;
+  const int r0 = blockIdx.z * GROUP;       // query heads r0 .. r0 + gl - 1
+  const int gl = min(GROUP, g - r0);
   const int b = row / kvh, h = row % kvh;
   const __nv_bfloat16* kb = k + (size_t)b * k_sb + (size_t)h * k_sh;
   const __nv_bfloat16* vb = v + (size_t)b * v_sb + (size_t)h * v_sh;
@@ -390,16 +405,17 @@ decode_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) fetch(i);
 
-  // Q, rows >= g zero, as the A operand of every k-step of QK^T
+  // the group's Q, rows >= gl zero, as the A operand of every k-step of
+  // QK^T
   uint32_t qa[KSTEPS][4];
-  const __nv_bfloat16* qr = q + (size_t)row * g * HD;
+  const __nv_bfloat16* qr = q + ((size_t)row * g + r0) * HD;
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) {
     const int c0 = kk * 16 + 2 * tig;
-    qa[kk][0] = grp < g ? ld_pair(qr + grp * HD + c0) : 0u;
-    qa[kk][1] = grp + 8 < g ? ld_pair(qr + (grp + 8) * HD + c0) : 0u;
-    qa[kk][2] = grp < g ? ld_pair(qr + grp * HD + c0 + 8) : 0u;
-    qa[kk][3] = grp + 8 < g ? ld_pair(qr + (grp + 8) * HD + c0 + 8) : 0u;
+    qa[kk][0] = grp < gl ? ld_pair(qr + grp * HD + c0) : 0u;
+    qa[kk][1] = grp + 8 < gl ? ld_pair(qr + (grp + 8) * HD + c0) : 0u;
+    qa[kk][2] = grp < gl ? ld_pair(qr + grp * HD + c0 + 8) : 0u;
+    qa[kk][3] = grp + 8 < gl ? ld_pair(qr + (grp + 8) * HD + c0 + 8) : 0u;
   }
 
   // softmax state of rows grp and grp + 8 (m in units of raw scores; l
@@ -551,17 +567,17 @@ decode_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // the split's partial (row, split); m in units of scaled scores, as the
   // combine pass takes it
   const size_t base = (size_t)row * gridDim.y + split;
-  for (int idx = threadIdx.x; idx < g * HD; idx += TC_THREADS) {
+  for (int idx = threadIdx.x; idx < gl * HD; idx += TC_THREADS) {
     const int r = idx / HD, d = idx % HD;
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < TC_WARPS; ++w)
       a = fmaf(Wt[w * 16 + r], Acc[(w * 16 + r) * HD + d], a);
-    part_acc[(base * g + r) * HD + d] = a;
+    part_acc[(base * g + r0 + r) * HD + d] = a;
   }
-  if (threadIdx.x < g) {
-    part_ml[(base * g + threadIdx.x) * 2] = Mrow[threadIdx.x] * scale;
-    part_ml[(base * g + threadIdx.x) * 2 + 1] = Lrow[threadIdx.x];
+  if (threadIdx.x < gl) {
+    part_ml[(base * g + r0 + threadIdx.x) * 2] = Mrow[threadIdx.x] * scale;
+    part_ml[(base * g + r0 + threadIdx.x) * 2 + 1] = Lrow[threadIdx.x];
   }
 }
 
@@ -579,6 +595,10 @@ struct Args {
   void* out;
   float* ws;
   int bkv, kvh, g, n, nsplit, chunk;
+  // blocks of query heads a row's G is cut into, and the rows each block's
+  // shared layout holds
+  int groups() const { return (g + GROUP - 1) / GROUP; }
+  int gs() const { return g < GROUP ? g : GROUP; }
   long long ks[3], vs[3];
   float scale;
   cudaStream_t stream;
@@ -595,9 +615,9 @@ cudaError_t combine(const Args& a, int hd) {
 
 template <int HD>
 cudaError_t launch_fp32(const Args& a) {
-  const size_t bytes = (size_t)Layout<HD>::floats(a.g) * sizeof(float);
+  const size_t bytes = (size_t)Layout<HD>::floats(a.gs()) * sizeof(float);
   decode_attention_fp32_kernel<float, HD>
-      <<<dim3(a.bkv, a.nsplit), NTHREADS, bytes, a.stream>>>(
+      <<<dim3(a.bkv, a.nsplit, a.groups()), NTHREADS, bytes, a.stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), a.ws,
           a.ws + (size_t)a.bkv * a.nsplit * a.g * HD, a.kvh, a.g, a.n, a.chunk,
@@ -612,8 +632,8 @@ cudaError_t launch_bf16(const Args& a) {
   cudaError_t err = tc_attributes<HD>();
   if (err != cudaSuccess) return err;
   decode_attention_bf16_kernel<HD>
-      <<<dim3(a.bkv, a.nsplit), TC_THREADS, TcLayout<HD>::BLOCK_BYTES,
-         a.stream>>>(
+      <<<dim3(a.bkv, a.nsplit, a.groups()), TC_THREADS,
+         TcLayout<HD>::BLOCK_BYTES, a.stream>>>(
           static_cast<const __nv_bfloat16*>(a.q),
           static_cast<const __nv_bfloat16*>(a.k),
           static_cast<const __nv_bfloat16*>(a.v), a.ws,
@@ -637,15 +657,16 @@ template <int HD>
 cudaError_t occupancy_fp32(int g, int* blocks_per_sm) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, decode_attention_fp32_kernel<float, HD>, NTHREADS,
-      (size_t)Layout<HD>::floats(g) * sizeof(float));
+      (size_t)Layout<HD>::floats(g < GROUP ? g : GROUP) * sizeof(float));
 }
 
 }  // namespace
 
 // The blocks of the kernel for (hd, g, dtype) that fit on one SM of the
 // current device at once (its registers and shared memory set them); the
-// caller sizes the splits by it.  dtype as in repro_decode_attention_fwd.
-// Returns a CUDA error code (0 on success).
+// caller sizes the splits by it, for B*KVH * ceil(g / 16) block rows.
+// dtype as in repro_decode_attention_fwd.  Returns a CUDA error code (0
+// on success).
 extern "C" int repro_decode_attention_blocks_per_sm(int hd, int g, int dtype,
                                                     int* blocks_per_sm) {
   if (g <= 0 || g > MAX_G) return (int)cudaErrorInvalidValue;
@@ -658,9 +679,10 @@ extern "C" int repro_decode_attention_blocks_per_sm(int hd, int g, int dtype,
 
 // q (bkv, g, hd) contiguous; k, v addressed as base + b*sb + h*sh + slot*ss
 // (elements, row b = bkv-row / kvh, h = bkv-row % kvh), hd contiguous and
-// 16-byte aligned; out (bkv, g, hd).  n = min(valid, Sc) slots are read,
-// in nsplit chunks of `chunk` slots (nsplit * chunk >= n, every chunk
-// non-empty unless n == 0 and nsplit == 1).  workspace:
+// 16-byte aligned; out (bkv, g, hd), g <= 48 (blocks of 16 heads).
+// n = min(valid, Sc) slots are read, in nsplit chunks of `chunk` slots
+// (nsplit * chunk >= n, every chunk non-empty unless n == 0 and nsplit
+// == 1).  workspace:
 // bkv*nsplit*g*(hd + 2) floats.  dtype: 0 = float32 (the exact CUDA-core
 // kernel), 1 = bfloat16 (the tensor-core kernel).  Launches on `stream` and returns cudaGetLastError() (0 on
 // success).

@@ -9,10 +9,14 @@ PV), fp32 the exact CUDA-core kernel; the dtype alone decides.  It takes
 no CPU tensor and never falls back: a failed build or launch raises.
 
 One query token per sequence: q (B·KVH, G, hd), the G query heads of one
-KV head packed as rows (query head ``h = kvh * G + g``).  The cache is the
-model's (B, Sc, KVH, hd), which the kernel reads in place through its
-strides (the TPU kernel takes it transposed to (B·KVH, Sc, hd), which here
-would copy every layer's cache at every step).
+KV head packed as rows (query head ``h = kvh * G + g``).  A block of the
+kernel packs at most ``GROUP`` of them (one 16-row tile of the tensor
+cores); a larger G, up to ``MAX_G`` (granite-34b's 48 heads over one KV
+head), is cut into ``groups(G)`` blocks of rows over the same slots.
+The cache is the model's (B, Sc, KVH, hd), which the kernel reads in
+place through its strides (the TPU kernel takes it transposed to
+(B·KVH, Sc, hd), which here would copy every layer's cache at every
+step).
 ``valid`` is a host int, the number of leading cache slots that hold
 tokens (``min(pos + 1, Sc)`` in a decode step); slots past it are masked
 and skipped, so ``valid == 0`` gives zeros, as the TPU kernel's
@@ -34,7 +38,8 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
-MAX_G = 16                    # query heads per KV head
+GROUP = 16                    # query heads a block packs
+MAX_G = 48                    # query heads per KV head: 3 groups
 TILE = 32                     # slots per tile (a warp's in the bf16 kernel)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -84,6 +89,12 @@ def _check(q, k, v, valid, num_heads: int, num_kv_heads: int):
     return k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
 
 
+def groups(g: int) -> int:
+    """The blocks of at most ``GROUP`` query heads that a row's ``g``
+    heads are cut into."""
+    return -(-g // GROUP)
+
+
 def _resident(hd: int, g: int, dtype: torch.dtype,
               device: torch.device) -> int:
     """The blocks of the kernel for (hd, g, dtype) that the card holds at
@@ -108,9 +119,10 @@ def _resident(hd: int, g: int, dtype: torch.dtype,
 
 
 def splits(n: int, bkv: int, resident: int) -> tuple:
-    """(nsplit, chunk): cut the n valid slots of each of the bkv rows into
-    chunks of whole tiles, so that bkv * nsplit blocks about fill
-    ``resident`` block slots (none past ``valid``, none empty)."""
+    """(nsplit, chunk): cut the n valid slots of each of the bkv block
+    rows (B·KVH · ``groups(G)``) into chunks of whole tiles, so that bkv *
+    nsplit blocks about fill ``resident`` block slots (none past
+    ``valid``, none empty)."""
     if n == 0:
         return 1, TILE
     tiles = math.ceil(n / TILE)
@@ -153,7 +165,8 @@ def decode_attention_packed(q: torch.Tensor, k: torch.Tensor,
                              f"row 16-byte aligned, strides {t.stride()}")
     sc = k4.shape[2]
     n = min(valid, sc)
-    nsplit, chunk = splits(n, bkv, _resident(hd, g, q.dtype, q.device))
+    nsplit, chunk = splits(n, bkv * groups(g),
+                           _resident(hd, g, q.dtype, q.device))
     out = torch.empty_like(q)
     # the splits' partial (acc, m, l), from torch's allocator on this stream
     ws = torch.empty(bkv * nsplit * g * (hd + 2), dtype=torch.float32,

@@ -1,14 +1,17 @@
-"""Model stacks: ATTN blocks with a SwiGLU MLP, MAMBA blocks with a SwiGLU
-or MoE MLP, the xLSTM blocks (MLSTM, SLSTM) with none, and the
+"""Model stacks: ATTN blocks with a SwiGLU or MoE MLP, MAMBA blocks with a
+SwiGLU or MoE MLP, the xLSTM blocks (MLSTM, SLSTM) with none, and the
 encoder-decoder's CROSS blocks with their encoder.
 
-The port of ``repro/models/transformer.py`` for the architectures whose
-patterns are made of those kinds: the serving path's qwen3-0.6b and
-qwen1.5-0.5b (``(ATTN,)``, dense MLP), the sliding-window starcoder2-3b
-(``(ATTN,)``, dense MLP, window 4096), xlstm-1.3b (7 MLSTM + 1 SLSTM),
-jamba-v0.1-52b (7 MAMBA + 1 ATTN, every other MLP a mixture of experts)
-and whisper-medium (24 CROSS decoder layers over a 24-layer encoder,
-sinusoidal positions instead of RoPE).
+The port of ``repro/models/transformer.py`` for every architecture of the
+reference: the serving path's qwen3-0.6b and qwen1.5-0.5b (``(ATTN,)``,
+dense MLP), the sliding-window starcoder2-3b (``(ATTN,)``, dense MLP,
+window 4096), chameleon-34b (dense, qk-norm) and granite-34b (dense, MQA:
+48 heads over one KV head, qkv bias, tied head), the mixtures of experts
+qwen3-moe-30b-a3b (128 experts, top 8, qk-norm) and phi3.5-moe-42b-a6.6b
+(16 experts, top 2) (``(ATTN,)``, every MLP a mixture of experts),
+xlstm-1.3b (7 MLSTM + 1 SLSTM), jamba-v0.1-52b (7 MAMBA + 1 ATTN, every
+other MLP a mixture of experts) and whisper-medium (24 CROSS decoder
+layers over a 24-layer encoder, sinusoidal positions instead of RoPE).
 Entry points: ``serve_prefill`` (the prompt, and for an encoder-decoder
 the encoder's frames) and ``serve_decode`` (one token per sequence after
 it).
@@ -46,8 +49,9 @@ from repro_torch.models.xlstm import MLSTMFn, MLSTMState, SLSTMState
 
 LayerState = Union[KVCache, MambaState, MLSTMState, SLSTMState]
 # (block kind, MLP kind) pairs the port implements
-PORTED_KINDS = {(ATTN, "dense"), (CROSS, "dense"), (MAMBA, "dense"),
-                (MAMBA, "moe"), (MLSTM, "none"), (SLSTM, "none")}
+PORTED_KINDS = {(ATTN, "dense"), (ATTN, "moe"), (CROSS, "dense"),
+                (MAMBA, "dense"), (MAMBA, "moe"), (MLSTM, "none"),
+                (SLSTM, "none")}
 # a CROSS layer's cross-attention leaves carry this prefix in its flat
 # parameter dict (``cross_wq`` ... beside the self-attention's ``wq``)
 CROSS_PREFIX = "cross_"
@@ -77,9 +81,10 @@ def _check_ported(cfg: ModelConfig) -> None:
     kinds = set(zip(cfg.block_pattern, cfg.mlp_pattern))
     if not kinds <= PORTED_KINDS:
         raise NotImplementedError(
-            f"{cfg.name}: only ATTN and CROSS blocks with a dense MLP, "
-            f"MAMBA blocks with a dense or MoE MLP and MLSTM/SLSTM blocks "
-            f"without one are ported, not {sorted(kinds - PORTED_KINDS)}")
+            f"{cfg.name}: only ATTN blocks with a dense or MoE MLP, CROSS "
+            f"blocks with a dense MLP, MAMBA blocks with a dense or MoE MLP "
+            f"and MLSTM/SLSTM blocks without one are ported, not "
+            f"{sorted(kinds - PORTED_KINDS)}")
 
 
 def _attn_shapes(cfg: ModelConfig) -> dict:

@@ -783,6 +783,15 @@ class MultiTenantEngine:
                     else:
                         task = (fid, ti, rb.stage, rb.data, None,
                                 inflight[fid].attempt)
+                    # an idle worker is not a silent one: its liveness
+                    # record starts at the submit that ends its idling,
+                    # so only a call that alone outlasts the timeout
+                    # looks hung (the reference counts the idle time
+                    # too).  The clock is read afresh: a restart earlier
+                    # in this round can have taken seconds since ``now``
+                    if not pool.pending(inst.device):
+                        sup.track(inst.device,
+                                  time.perf_counter() - start)
                     pool.submit(inst.device, task)
             wake = [traces[ti][idx[ti]].arrival
                     for ti in range(len(self.tenants))

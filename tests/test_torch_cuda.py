@@ -306,6 +306,14 @@ def test_cuda_xlstm_prefill_runs_the_kernel_per_layer_and_chunk(card):
     # all valid from the first step (off the 32-slot tile), G 1
     (4, 1500, 16, 16, 64, 1500, torch.bfloat16),
     (4, 1500, 16, 16, 64, 1500, torch.float32),
+    # G > 16: the heads cut into blocks of 16 over the same slots; G 24
+    # (a full and a half group) and granite-34b's MQA G 48 (three), on a
+    # ring past its size and on a partly filled cache, in both dtypes
+    (2, 300, 48, 2, 128, 1000, torch.bfloat16),
+    (2, 300, 48, 2, 64, 203, torch.float32),
+    (4, 2080, 48, 1, 128, 2049, torch.bfloat16),   # granite-34b's step
+    (2, 300, 48, 1, 128, 1000, torch.float32),
+    (2, 100, 48, 1, 64, 61, torch.bfloat16),
 ])
 def test_cuda_decode_kernel_matches_plain(card, b, sc, h, kvh, hd, valid,
                                           dtype):
@@ -343,9 +351,9 @@ def test_cuda_decode_kernel_refuses_unsupported_sizes(card):
     q, k = args(2, 48)
     with pytest.raises(ValueError, match="head_dim"):
         dec.decode_attention_packed(q, k, k, 4, num_heads=4, num_kv_heads=2)
-    q, k = args(17, 64)
+    q, k = args(49, 64)
     with pytest.raises(ValueError, match="at most"):
-        dec.decode_attention_packed(q, k, k, 4, num_heads=34, num_kv_heads=2)
+        dec.decode_attention_packed(q, k, k, 4, num_heads=98, num_kv_heads=2)
     q, k = args(2, 64)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         dec.decode_attention_packed(q.half(), k.half(), k.half(), 4,
@@ -386,6 +394,51 @@ def test_cuda_serve_decode_runs_the_kernel_once_per_layer_and_step(card,
         launched = dec.LAUNCHES - before
     assert launched == cfg.num_layers * 3
     assert cache.pos == s + 3
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "chameleon-34b",
+                                  "granite-34b", "phi3.5-moe-42b-a6.6b"])
+def test_cuda_zoo_runs_the_kernels_at_published_heads(card, arch):
+    """The reduced width at the published head counts (granite-34b: 48
+    query heads over one KV head, so the decode kernel's three groups of
+    16), bf16: a prefill launches the prefill kernel once a layer, each of
+    3 decode steps the decode kernel once a layer, and every launch agrees
+    with the plain ops' run on the same inputs within 2e-2 and 2^-6 of its
+    rows' largest |output|."""
+    import dataclasses
+    from repro_torch.models import Transformer
+    h, kvh = get_config(arch).num_heads, get_config(arch).num_kv_heads
+    cfg = dataclasses.replace(get_config(arch, reduced=True), num_layers=2,
+                              num_heads=h, num_kv_heads=kvh, head_dim=64)
+    model = Transformer(cfg, dtype=torch.bfloat16, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=card,
+                           device="cuda", dtype=torch.int32)
+    worst = []
+
+    def held(kernel, plain):
+        def op(*a, **kw):
+            out, ref = kernel(*a, **kw), plain(*a, **kw).float()
+            diff = (out.float() - ref).abs()
+            worst.append(max(
+                (diff / (2e-2 + 2e-2 * ref.abs())).max().item(),
+                (diff / (2.0 ** -6 * ref.abs().amax(-1, keepdim=True)))
+                .max().item()))
+            return out
+        return op
+    with torch.inference_mode():
+        before = (fa.LAUNCHES, dec.LAUNCHES)
+        logits, cache = model.serve_prefill(
+            tokens, cache_len=43,
+            attention=held(ops.flash_attention, ops.flash_attention_plain))
+        for _ in range(3):
+            logits, cache = model.serve_decode(
+                logits.argmax(-1), cache, decode_attention=held(
+                    ops.decode_attention, ops.decode_attention_plain))
+        torch.cuda.synchronize()
+    assert (fa.LAUNCHES - before[0], dec.LAUNCHES - before[1]) == \
+        (cfg.num_layers, cfg.num_layers * 3)
+    assert len(worst) == cfg.num_layers * 4 and max(worst) <= 1
     assert torch.isfinite(logits).all()
 
 

@@ -3,7 +3,10 @@
 The bf16 kernel (``decode_attention_bf16_kernel`` in
 ``kernels/csrc/decode_attention.cu``) cuts the valid slots of each
 (B·KVH) row into splits (``decode_attention.splits`` for the card's 132
-SMs, one block of 192 KB of shared memory each), gives every fourth
+SMs, one block of 192 KB of shared memory each; a row's G > 16 query heads
+are cut into groups of at most 16, each its own block over the same
+slots, so the splits are sized for B·KVH · ``groups(G)`` block rows and
+every head's arithmetic is that of G <= 16), gives every fourth
 32-slot tile of a split to each of its four warps, and has each warp keep
 its own online softmax: bf16 products accumulated in fp32, the scale
 folded into exp2, P rounded to bf16 for PV (the TPU kernel's p stays
@@ -58,7 +61,9 @@ def _kernel_numerics(q, k, v, valid, *, round_p=True):
     n = min(valid, sc)
     if n == 0:
         return torch.zeros_like(q)
-    nsplit, chunk = dec.splits(n, bkv, SMS)
+    # the grouped kernel's block rows; a head's arithmetic does not depend
+    # on the other heads of its block
+    nsplit, chunk = dec.splits(n, bkv * dec.groups(g), SMS)
     tile = dec.TILE
     tpc = chunk // tile                           # tiles per split
     tpw = math.ceil(tpc / WARPS)                  # tiles per warp
@@ -130,10 +135,11 @@ def _check(jq, tq, valid, pallas=True):
 
 
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("g", [1, 2, 4, 12])
+@pytest.mark.parametrize("g", [1, 2, 4, 12, 24, 48])
 def test_bf16_p_stays_within_the_bound(g, hd):
-    """G 1 / 2 / 4 (jamba) / 12 (starcoder2-3b), valid 1, a count that
-    ends inside a tile, and the whole cache."""
+    """G 1 / 2 / 4 (jamba) / 12 (starcoder2-3b) / 24 (two groups of
+    heads, the second full) / 48 (granite-34b: three groups), valid 1, a
+    count that ends inside a tile, and the whole cache."""
     jq, tq = _inputs(g * hd, 2, 300, 2 * g, 2, hd)
     for valid in (1, 203, 300):
         _check(jq, tq, valid)
@@ -143,6 +149,7 @@ def test_bf16_p_stays_within_the_bound(g, hd):
     (4, 2080, 16, 8, 128, 2049),     # qwen3-0.6b's step: 4-5 tiles a warp
     (4, 2080, 16, 16, 64, 2080),     # qwen1.5-0.5b's
     (4, 4096, 24, 2, 128, 4096),     # starcoder2-3b's ring
+    (4, 2080, 48, 1, 128, 2049),     # granite-34b's MQA step: G 48
 ])
 def test_bf16_p_stays_within_the_bound_at_decode_shapes(b, sc, h, kvh, hd,
                                                         valid):

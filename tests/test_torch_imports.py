@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` (nor chip_smoke.py)
-imports jax or the JAX package, and its entry points never drop quietly
-to the CPU."""
+"""The port stands alone: no module of ``repro_torch`` (nor chip_smoke.py,
+nor an example twin ``examples/*_torch.py``) imports jax or the JAX
+package, and its entry points never drop quietly to the CPU."""
 import os
 import re
 import subprocess
@@ -11,8 +11,9 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLE_TWINS = sorted((ROOT / "examples").glob("*_torch.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + EXAMPLE_TWINS
 
 # `import jax`, `from jax...`, `import repro`, `from repro.x` — but not
 # repro_torch — and the same names handed to import_module / __import__
@@ -26,6 +27,9 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "src/repro_torch/kernels/ops.py" in names
     assert "chip_smoke.py" in names
+    assert {p.name for p in EXAMPLE_TWINS} == {
+        "quickstart_torch.py", "serve_pipeline_torch.py",
+        "artifact_suite_torch.py"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -101,6 +105,46 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 
 def test_unported_architecture_raises():
+    """A name that neither package registers (every architecture of the
+    reference is ported)."""
     from repro_torch.configs import get_config
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("chameleon-34b")
+    with pytest.raises(KeyError, match="unknown architecture 'llama-7b'"):
+        get_config("llama-7b")
+
+
+def test_port_registers_every_reference_architecture():
+    import repro.configs as ref_configs
+    import repro_torch.configs as port_configs
+    assert set(port_configs.ARCH_IDS) == set(ref_configs.ARCH_IDS)
+    for arch in port_configs.ARCH_IDS:
+        assert port_configs.get_config(arch).name == arch
+
+
+def test_example_twins_run_with_jax_and_repro_blocked():
+    """Each twin's functions, imported and run on the CPU (reduced models
+    where it serves any) with jax and the JAX package blocked."""
+    code = (
+        "import sys, importlib.util\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "def load(name):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'examples/{name}.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    return mod\n"
+        "qs = load('quickstart_torch')\n"
+        "out = qs.run_workload(qs.workload_specs()['text-to-text'], 2,\n"
+        "                      reduced=True, device='cpu')\n"
+        "assert out['live']['completed'] == 2\n"
+        "sp = load('serve_pipeline_torch')\n"
+        "out = sp.main(['--queries', '4', '--reduced', '--device', 'cpu'])\n"
+        "assert out['auto']['completed'] == 4\n"
+        "load('artifact_suite_torch')\n"
+        "assert sys.modules['jax'] is None and sys.modules['repro'] is None\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"

@@ -518,6 +518,31 @@ def test_pool_keeps_completions_read_while_a_worker_warms_up(tmp_path):
         pool.close()
 
 
+def test_idle_worker_is_not_declared_hung():
+    """A worker that idles longer than ``supervise_timeout`` and then takes
+    a call spanning a driver poll (at most 50 ms) is healthy: both queries
+    complete with no restart.  Stage i runs on worker i; each call spins
+    ~75 ms on an idle host (well inside the timeout on a loaded one); the
+    second query arrives 2.5 s after the first.  The
+    reference's engine (and the port's before its supervisor counted
+    silence from the submit that ends a worker's idling) restarts a
+    worker here and fails the second query: completed 1, failed 1,
+    ``worker_restarts`` 1."""
+    pk = PKGS["port"]
+    rng = np.random.default_rng(21)
+    trace = [pk.serving.Query(qid=i, arrival=a,
+                              tokens=rng.integers(0, 64, 8).astype(np.int32))
+             for i, a in enumerate((0.0, 2.5))]
+    with pk.serving.PipelineEngine(_cpu_stages(pk, 2, spin=300_000),
+                                   batch_size=1, batch_timeout=0.01,
+                                   qos_target=60.0, backend="processes",
+                                   allocation=_spread(pk, 2, 1),
+                                   supervise_timeout=1.0) as eng:
+        stats = eng.run_trace(trace)
+        assert (stats.summary()["completed"], stats.failed) == (2, 0)
+        assert eng.worker_restarts == 0
+
+
 def test_servespec_drives_engine_knobs():
     pk = PKGS["port"]
     assert pk.serving.PipelineEngine(_cpu_stages(pk, 1)).backend == "threads"
