@@ -122,6 +122,25 @@ Phases, each printing one line per case:
      decode steps as in phase 7, the weight bytes and the peak memory;
      then ``examples/quickstart_torch.py --queries 4`` in a process of
      its own (``quickstart``), which must exit 0;
+ 10. training (run after phase 4, before the main path): the
+     prefill-attention backward kernel against autograd through the
+     plain version (``check_attention_bwd``: dq, dk, dv in fp32 and bf16
+     at the train phase's own shapes (qwen3-0.6b B 4, S 2048 and
+     whisper-medium's decoder self-attention), qwen3-0.6b's at a ragged
+     S, qwen1.5-0.5b's, starcoder2-3b's windowed, granite-34b's G 48,
+     whisper-medium's encoder and cross shapes, each within BWD_TOL of
+     the largest plain gradient), its times at the
+     prefill rows' shapes beside autograd through the plain version, one
+     SDPA backward and the bound (``time_attention_bwd``), then
+     ``forward_train``'s loss and every gradient of qwen3-0.6b at full
+     width, two layers, fp32, through the kernels against the plain
+     attention (``train_grads``), ``make_train_step`` on qwen3-0.6b at
+     full width and depth, bf16, B 4, S 2048, remat on (a warm-up, 3
+     timed steps, one profiled: 56 forward and 28 backward launches a
+     step) and on whisper-medium (B 2, S 448 over 1,500 frames, one
+     step), and the decode, mLSTM and scan ops raising under grad on the
+     card, and attention whose last rows see no key refused under grad
+     (``train_guards``);
 then a ``{"kernels": [...]}`` line (``launches``: each kernel's launches
 on its path, counted from 0 just before the path and read just after:
 the served traces for the prefill kernels, those of the ``serve`` phases
@@ -129,8 +148,10 @@ plus the ``camelot`` phases' profiling and served trace and the facade
 phases' traces and the zoo's timed prefills (each also beside it;
 ``launches_processes``: the process phases', counted in the workers),
 the timed decode steps (the zoo's too) for the decode kernel, the timed
-jamba prefill for the scan kernel; the other paths' counts beside
-them), the
+jamba prefill for the scan kernel, the timed qwen3-0.6b train steps for
+the backward kernel; the other paths' counts beside them, and
+``launches_serve`` of the kernels a served trace never launches, counted
+over the served phases and held to 0), the
 ``nvidia-smi`` line again, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without that line.  It imports nothing of jax or of
@@ -1990,6 +2011,12 @@ FACADE_SA_ITERATIONS = 1200
 # each kernel of the served chains and the block kind that launches it
 KERNEL_KINDS = (("flash_attention_bhsd", "attn"),
                 ("mlstm_chunk_step", "mlstm"))
+# the kernels a served trace never launches (it prefills under
+# ``torch.inference_mode``): counted all the same, in the driver and in the
+# workers, and held to 0
+SERVE_NONE = ("flash_attention_bwd", "decode_attention_packed",
+              "ssm_chunk_scan")
+WORKER_KERNELS = tuple(name for name, _ in KERNEL_KINDS) + SERVE_NONE
 
 
 def served_spec(chain: str, stages, profiles):
@@ -2364,18 +2391,20 @@ def worker_launches(eng) -> dict:
     """Each kernel's launches, summed over the engine's closed workers."""
     return {name: sum(r["launches"][name]
                       for r in eng.worker_reports.values())
-            for name, _ in KERNEL_KINDS}
+            for name in WORKER_KERNELS}
 
 
 def check_worker_launches(phase: str, stages, eng, batches: int) -> dict:
     """Every worker warms every stage once, and each batch passes every
-    stage once: per call x (batches + workers) launches of each kernel."""
+    stage once: per call x (batches + workers) launches of each kernel,
+    and none of the kernels a served trace never launches."""
     launches = worker_launches(eng)
     workers = len(eng.worker_reports)
     check_launches(phase, launches,
-                   {name: launches_per_call(stages, kind)
-                    * (batches + workers)
-                    for name, kind in KERNEL_KINDS})
+                   {**{name: launches_per_call(stages, kind)
+                       * (batches + workers)
+                       for name, kind in KERNEL_KINDS},
+                    **{name: 0 for name in SERVE_NONE}})
     return launches
 
 
@@ -2393,7 +2422,7 @@ def serve_processes(chain: str, stages, mechanisms, crossover: float,
     comm = ClusterSpec(device=H100, devices=3,
                        crossover_bytes=crossover).comm_model()
     alloc = spread_allocation()
-    total = {name: 0 for name, _ in KERNEL_KINDS}
+    total = {name: 0 for name in WORKER_KERNELS}
     for mech in mechanisms:
         t0 = time.perf_counter()
         gc_collect()                     # the driver's cached blocks
@@ -2583,6 +2612,391 @@ def serve_pipelines(fa, ms) -> tuple:
     return out, facade, processes
 
 
+# --------------------------------------------------------------------------
+# phase 10: training — the attention backward kernel, then train steps
+# --------------------------------------------------------------------------
+
+# attention backward, kernel vs autograd through the plain version, per
+# gradient: max |diff| <= BWD_TOL * max |plain gradient|.  fp32: both sum
+# in fp32 in other orders (~1e-6 relative).  bf16: the kernel reads the
+# bf16-rounded output in D = rowsum(dO * O) and writes bf16 gradients
+# (2^-9 relative each) and the forward's lse comes from the tensor-core
+# kernel; the plain version runs in fp32 on the same bf16-rounded
+# inputs.  A lost or doubled tile, head or mask row moves a gradient by
+# O(1) of its largest value.
+BWD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+# (label, B, Sq, Skv, H, KVH, hd, causal, window)
+ATTN_BWD_CASES = [
+    # the train phase's own shapes: qwen3-0.6b's timed steps, whisper-
+    # medium's decoder self-attention
+    ("qwen3-0.6b, train path", 4, 2048, 2048, 16, 8, 128, True, None),
+    ("whisper-medium decoder self", 2, 448, 448, 16, 16, 64, True, None),
+    ("qwen3-0.6b, ragged S", 2, 1000, 1000, 16, 8, 128, True, None),
+    ("qwen1.5-0.5b", 2, 777, 777, 16, 16, 64, True, None),
+    ("starcoder2-3b, window < S", 1, 1200, 1200, 24, 2, 128, True, 500),
+    ("granite-34b, MQA G 48", 1, 520, 520, 48, 1, 128, True, None),
+    ("whisper-medium encoder", 2, 1500, 1500, 16, 16, 64, False, None),
+    ("whisper-medium cross", 2, 448, 1500, 16, 16, 64, False, None),
+    # the CUDA-core route in bf16 (hd < 64): window 2, causal Sq < Skv.
+    # (A window of 1 leaves every softmax one key wide, so the plain dq
+    # and dk are exactly 0 and a bound relative to them holds nothing;
+    # 2 is the narrowest window with a nonzero dq.)
+    ("hd 8, window 2", 2, 70, 70, 4, 2, 8, True, 2),
+    ("hd 32, Sq < Skv", 2, 33, 77, 4, 2, 32, True, None),
+]
+ATTN_BWD_TIME_SHAPES = [
+    s for s in ATTN_TIME_SHAPES if s[0] > 16] + [
+    (448, 1500, 16, 16, 64, False, None, "whisper-medium (cross, train)")]
+# the train phase, kernel vs plain attention in fp32 at full width and two
+# layers: the loss and each parameter's gradient, max |diff| over max
+# |plain gradient| of the leaf.  Both are fp32 and differ by the
+# attention's summation order (~1e-6); a wrong attention gradient moves
+# the projections' gradients by O(1)
+TRAIN_LOSS_REL_TOL = 1e-5
+TRAIN_GRAD_REL_TOL = 1e-3
+
+
+def attn_inputs(gen, b, sq, skv, h, kvh, hd, dtype):
+    """q (B, Sq, H, hd), k, v (B, Skv, KVH, hd) and an upstream gradient,
+    the model's layout."""
+    return (rand(gen, (b, sq, h, hd), dtype), rand(gen, (b, skv, kvh, hd),
+                                                     dtype),
+            rand(gen, (b, skv, kvh, hd), dtype),
+            rand(gen, (b, sq, h, hd), dtype))
+
+
+def check_attention_bwd(fa, ops) -> float:
+    """dq, dk, dv of the kernels (``ops.flash_attention`` under grad: the
+    forward with lse, then the backward kernel) against autograd through
+    the plain version in fp32 on the same (bf16-rounded) inputs; one
+    forward and one backward launch per call.  Returns the worst max abs
+    error."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    worst = 0.0
+    for label, b, sq, skv, h, kvh, hd, causal, window in ATTN_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = attn_inputs(gen, b, sq, skv, h, kvh, hd, dtype)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+            out = ops.flash_attention(*leaves, causal=causal, window=window)
+            got = torch.autograd.grad(out, leaves, dout)
+            torch.cuda.synchronize()
+            launched = (fa.LAUNCHES - fwd, fa.BWD_LAUNCHES - bwd)
+            ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+            ref_out = ops.flash_attention_plain(*ref_leaves, causal=causal,
+                                                window=window)
+            ref = torch.autograd.grad(ref_out, ref_leaves, dout.float())
+            errs, rel = {}, {}
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                if g.dtype != dtype or g.shape != r.shape:
+                    raise AssertionError(f"{label}: {name} {g.dtype} "
+                                         f"{tuple(g.shape)}")
+                errs[name] = (g.float() - r).abs().max().item()
+                rel[name] = errs[name] / max(r.abs().max().item(), 1e-30)
+            line = {"phase": "check_attention_bwd", "case": label, "b": b,
+                    "sq": sq, "skv": skv, "h": h, "kvh": kvh, "hd": hd,
+                    "causal": causal, "window": window, "dtype": str(dtype),
+                    "max_abs_err": errs, "err_over_max_grad": rel,
+                    "tol_over_max_grad": BWD_TOL[dtype],
+                    "launches_fwd_bwd": launched}
+            emit(line)
+            if launched != (1, 1):
+                raise AssertionError(f"{label}: launches {launched}")
+            if max(rel.values()) > BWD_TOL[dtype] or not all(
+                    math.isfinite(e) for e in errs.values()):
+                raise AssertionError(f"attention backward off: {line}")
+            worst = max(worst, *errs.values())
+            del q, k, v, dout, leaves, out, got, ref_leaves, ref_out, ref
+            torch.cuda.empty_cache()
+    return worst
+
+
+def time_attention_bwd(fa, ops, peaks) -> list:
+    """The backward kernel's times at the train path's shapes (B 4, bf16):
+    CUDA-event ms of one backward (its three passes), its device ms from
+    the profiler, autograd through the plain version, and one
+    ``scaled_dot_product_attention`` backward (cuDNN or whichever kernel
+    PyTorch picks; the port never calls it).  Bound: 2.5x the forward's
+    FLOPs (S again, dP, dV, dK, dQ) at the tensor cores' rate, or the
+    bytes (q, k, v, out, dout and lse read, dq, dk, dv written)."""
+    import torch.nn.functional as F
+    flops_rate, mem_rate = peaks
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    b, dt = 4, torch.bfloat16
+    rows = []
+    for sq, skv, h, kvh, hd, causal, window, model in ATTN_BWD_TIME_SHAPES:
+        q, k, v, dout = attn_inputs(gen, b, sq, skv, h, kvh, hd, dt)
+        out = torch.empty_like(q)
+        lse = torch.empty(b, h, sq, dtype=torch.float32, device="cuda")
+        fa._launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   out.transpose(1, 2), causal, window, lse)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+
+        def kernel():
+            fa._launch_bwd(*(t.transpose(1, 2) for t in (q, k, v, out,
+                                                         dout)),
+                           lse, *(t.transpose(1, 2) for t in (dq, dk, dv)),
+                           causal, window)
+        ms = cuda_ms(kernel, 5, warmup=1)
+        passes = kernel_device_ms(kernel, fa.bwd_passes(hd, dt), 3)
+        device_ms = sum(passes.values())
+
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        plain_out = ops.flash_attention_plain(*leaves, causal=causal,
+                                              window=window)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(
+            plain_out, leaves, dout, retain_graph=True), 2, warmup=1)
+        del plain_out, leaves
+        torch.cuda.empty_cache()
+
+        if window is not None and window < skv:
+            raise AssertionError("SDPA's is_causal is not this window")
+        lib = [t.transpose(1, 2).detach().requires_grad_(True)
+               for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *lib, is_causal=causal, enable_gqa=kvh != h)
+        lib_dout = dout.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lib_out, lib, lib_dout,
+                                       retain_graph=True)
+        lib_ms = cuda_ms(library, 5, warmup=1)
+        lib_device_ms, lib_kernels = library_device_ms(library, 3)
+        del lib_out, lib
+        pairs = sum(min(i + 1, window or skv) for i in range(sq)) \
+            if causal else sq * skv
+        flops = 2.5 * 4 * hd * pairs * b * h
+        # q, out and dout read and dq written; k, v read and dk, dv
+        # written; lse read, and the delta scratch written and read once
+        nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) \
+            * q.element_size() + 2 * lse.numel() * 4
+        t_ops, t_bytes = flops / flops_rate, nbytes / mem_rate
+        row = {"model": model, "h": h, "kvh": kvh, "hd": hd, "b": b,
+               "sq": sq, "skv": skv, "causal": causal, "window": window,
+               "ms": ms, "device_ms": device_ms, "device_ms_by_pass": passes,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_device_ms": lib_device_ms,
+               "library_kernels": lib_kernels, "flops": flops,
+               "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        row["bound_share_device"] = row["bound_ms"] / device_ms
+        emit({"phase": "time_attention_bwd", **row})
+        rows.append(row)
+        del q, k, v, dout, out, lse, dq, dk, dv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _finite(x) -> float:
+    x = float(x)
+    if not math.isfinite(x):
+        raise AssertionError(f"not finite: {x}")
+    return x
+
+
+def train_grads_phase(fa, ops, Transformer, get_config) -> dict:
+    """(a) qwen3-0.6b at full width, two layers, fp32, B 2, S 512: one
+    ``forward_train`` and its backward through the kernels and through the
+    plain attention on the same weights; the loss and every leaf's
+    gradient held to the plain run."""
+    from repro_torch.training import DataConfig, batch_to, make_batch
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=2)
+    model = Transformer(cfg, device="cuda", dtype=torch.float32, seed=41)
+    b = batch_to(make_batch(cfg, DataConfig(seq_len=512, global_batch=2),
+                            0), "cuda")
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    model.requires_grad_(True)
+    runs = {}
+    for label, attention in (("kernel", ops.flash_attention),
+                             ("plain", ops.flash_attention_plain)):
+        fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+        loss = model.forward_train(b["tokens"], b["labels"], remat=True,
+                                   attention=attention)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        runs[label] = (loss.item(), grads,
+                       (fa.LAUNCHES - fwd, fa.BWD_LAUNCHES - bwd))
+    model.requires_grad_(False)
+    (lk, gk, launched), (lp, gp, plain_launched) = runs["kernel"], \
+        runs["plain"]
+    rel = {n: ((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
+           for n, a, c in zip(names, gk, gp)}
+    worst_leaf = max(rel, key=rel.get)
+    line = {"phase": "train_grads", "model": cfg.name, "layers": 2,
+            "dtype": "float32", "b": 2, "s": 512, "loss_kernel": lk,
+            "loss_plain": lp, "loss_rel_diff": abs(lk - lp) / abs(lp),
+            "worst_leaf": worst_leaf, "worst_grad_rel_err": rel[worst_leaf],
+            "grad_rel_err": rel, "tol": [TRAIN_LOSS_REL_TOL,
+                                          TRAIN_GRAD_REL_TOL],
+            "launches_fwd_bwd": launched,
+            "launches_fwd_bwd_plain_run": plain_launched}
+    emit(line)
+    # remat: each layer's forward runs again in the backward
+    if launched != (4, 2) or plain_launched != (0, 0):
+        raise AssertionError(f"train_grads launches {launched} "
+                             f"{plain_launched}")
+    if not (line["loss_rel_diff"] <= TRAIN_LOSS_REL_TOL
+            and rel[worst_leaf] <= TRAIN_GRAD_REL_TOL):
+        raise AssertionError(f"train_grads off: {worst_leaf} "
+                             f"{rel[worst_leaf]}, loss {lk} vs {lp}")
+    return {"launches_fwd_bwd": launched}
+
+
+def train_steps(fa, model, batches, steps: int, label: str,
+                profile: bool) -> dict:
+    """``make_train_step`` on ``model`` (bf16): one warm-up step, then
+    ``steps`` timed ones (the attention kernels' launches counted from 0
+    just before them), then, with ``profile``, one profiled step.  Each
+    batch is made on the host before its step's clock starts."""
+    from repro_torch.training import (AdamWConfig, init_adamw,
+                                      make_train_step)
+    cfg = model.cfg
+    first = batches(0)
+    opt = init_adamw(dict(model.named_parameters()))
+    step = make_train_step(model, AdamWConfig(lr=1e-4, warmup_steps=2,
+                                              total_steps=100))
+    opt, _ = step(opt, first)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    per_step, walls = [], []
+    for i in range(1, steps + 1):
+        batch = batches(i)            # made on the host, before the clock
+        t0 = time.perf_counter()
+        opt, met = step(opt, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append({"loss": _finite(met["loss"]),
+                         "grad_norm": _finite(met["grad_norm"]),
+                         "lr": _finite(met["lr"])})
+    launches = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    b, s = first["tokens"].shape
+    wall_ms = sorted(walls)[len(walls) // 2] * 1e3
+    out = {"phase": "train_step", "model": cfg.name,
+           "layers": cfg.num_layers, "dtype": "bfloat16", "b": b, "s": s,
+           "remat": True,
+           "steps": per_step, "wall_ms": [w * 1e3 for w in walls],
+           "wall_ms_median": wall_ms, "tokens_per_s": b * s / wall_ms * 1e3,
+           "launches_fwd_bwd": launches,
+           "launches_fwd_bwd_per_step": [n / steps for n in launches],
+           "peak_memory_gb": peak_gb, "label": label}
+    if profile:
+        bwd_expected = launches[1] // steps
+        first_pass = fa.bwd_passes(cfg.resolved_head_dim, torch.bfloat16)[0]
+        batch = batches(steps + 1)
+
+        def one():
+            nonlocal opt
+            opt, _ = step(opt, batch)
+        device_ms, kernels = device_profile(
+            one, expect={first_pass: bwd_expected})
+        attn_bwd = sum(t for key, _, t in kernels
+                       if any(n in key for n in fa.BWD_KERNELS))
+        attn_fwd = sum(t for key, _, t in kernels if ATTN_KERNEL in key)
+        out.update(device_ms=device_ms,
+                   device_idle_share=max(0.0, 1 - device_ms / wall_ms),
+                   attention_bwd_device_ms=attn_bwd,
+                   attention_fwd_device_ms=attn_fwd,
+                   device_launches=sum(n for _, n, _ in kernels),
+                   top_device_kernels=kernels[:6])
+    emit(out)
+    del opt
+    return out
+
+
+def guards_phase(ops) -> list:
+    """(d) the kernels without a backward refuse a gradient on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    f32 = torch.float32
+    q, k, v = (rand(gen, (1, 2, 16, 64), f32).requires_grad_(True)
+               for _ in range(3))
+    gates = [rand(gen, (1, 2, 16), f32) for _ in range(2)]
+    carry = (torch.zeros(1, 2, 64, 64, device="cuda"),
+             torch.zeros(1, 2, 64, device="cuda"),
+             torch.full((1, 2), -1e30, device="cuda"))
+    da = rand(gen, (1, 8, 16, 4), f32).sigmoid().requires_grad_(True)
+    dbx = rand(gen, (1, 8, 16, 4), f32)
+    qd = rand(gen, (1, 1, 4, 64), f32).requires_grad_(True)
+    kd, vd = (rand(gen, (1, 32, 2, 64), f32) for _ in range(2))
+    calls = {"mlstm_chunk": lambda: ops.mlstm_chunk(q, k, v, *gates,
+                                                    *carry),
+             "ssm_scan": lambda: ops.ssm_scan(da, dbx),
+             "decode_attention": lambda: ops.decode_attention(qd, kd, vd,
+                                                              32)}
+    raised = []
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            raised.append(name)
+            msg = str(e)
+        else:
+            raise AssertionError(f"{name} returned under grad on the card")
+        if "Queue A 4b" not in msg:
+            raise AssertionError(f"{name}: {msg}")
+        with torch.no_grad():
+            call()                  # without grad the kernel runs
+    # attention whose last rows see no key (Sq >= Skv + window): their
+    # output is the mean of V, whose gradient the backward kernel does not
+    # give, so a call under grad is refused
+    qa = rand(gen, (1, 12, 4, 64), f32).requires_grad_(True)
+    ka = rand(gen, (1, 8, 2, 64), f32)
+    try:
+        ops.flash_attention(qa, ka, ka, causal=True, window=4)
+    except ValueError as e:
+        if "no key" not in str(e):
+            raise
+        raised.append("flash_attention, rows with no key")
+    else:
+        raise AssertionError("attention with rows that see no key "
+                             "returned under grad")
+    torch.cuda.synchronize()
+    emit({"phase": "train_guards", "raised_under_grad": raised})
+    return raised
+
+
+def train_phase(fa, ops, Transformer, get_config) -> dict:
+    """Phase 10's training part: (a) gradients through the kernels held to
+    the plain attention; (b) qwen3-0.6b at full width and depth, bf16, B 4,
+    S 2048, remat: a warm-up and 3 timed steps, then one profiled (the
+    backward kernel's path: its launches are the kernels line's); (c)
+    whisper-medium at full width, B 2, S 448 over 1,500 frames, one timed
+    step and one profiled; (d) the guards."""
+    from repro_torch.training import DataConfig, make_batch
+    grads = train_grads_phase(fa, ops, Transformer, get_config)
+    gc_collect()
+
+    cfg = get_config("qwen3-0.6b")
+    model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=42)
+    dcfg = DataConfig(seq_len=2048, global_batch=4)
+    qwen = train_steps(fa, model, lambda i: make_batch(cfg, dcfg, i), 3,
+                       "qwen3-0.6b full depth", profile=True)
+    expect = [2 * cfg.num_layers, cfg.num_layers]      # remat: 56 and 28
+    if qwen["launches_fwd_bwd_per_step"] != expect:
+        raise AssertionError(f"train launches "
+                             f"{qwen['launches_fwd_bwd_per_step']} != "
+                             f"{expect}")
+    del model
+    gc_collect()
+
+    wcfg = get_config(WHISPER)
+    model = Transformer(wcfg, device="cuda", dtype=torch.bfloat16, seed=44)
+    wd = DataConfig(seq_len=448, global_batch=2)
+    whisper = train_steps(fa, model, lambda i: make_batch(wcfg, wd, i), 1,
+                          "whisper-medium", profile=True)
+    # encoder, self and cross attention per layer, each run twice (remat)
+    layers = wcfg.num_encoder_layers + 2 * wcfg.num_layers
+    if whisper["launches_fwd_bwd_per_step"] != [2 * layers, layers]:
+        raise AssertionError(f"whisper train launches "
+                             f"{whisper['launches_fwd_bwd_per_step']}")
+    del model
+    gc_collect()
+    return {"grads": grads, "qwen": qwen, "whisper": whisper,
+            "guards": guards_phase(ops)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2621,9 +3035,14 @@ def main() -> int:
     worst = max(check_kernels(fa), check_bshd(fa, ops))
     worst_mlstm = check_mlstm(ms)
     worst_decode, worst_decode_row = check_decode(dec)
+    worst_bwd = check_attention_bwd(fa, ops)
     timing = time_kernels(fa, ops, peaks)
     timing_mlstm = time_mlstm(ms, peaks)
     timing_decode = time_decode(dec, ops, peaks)
+    timing_bwd = time_attention_bwd(fa, ops, peaks)
+    # training: the backward kernel's path (its counts from 0 just before
+    # the timed full-width qwen3-0.6b steps)
+    train = train_phase(fa, ops, Transformer, get_config)
 
     # each path resets the counts just before it runs and reads them just
     # after: the full-width prefills, then the served chains (the main
@@ -2632,8 +3051,17 @@ def main() -> int:
     launches_prefill_mlstm = prefill_xlstm(ms, ops, Transformer, get_config)
     launches_prefill_whisper = prefill_whisper(fa, ops, Transformer,
                                                get_config)
+    # the kernels a served trace never launches, counted in the driver
+    # over every served phase (and in the workers by their exit reports)
+    fa.BWD_LAUNCHES = dec.LAUNCHES = sm.LAUNCHES = 0
     ((first, camelot_first), (second, camelot_second),
      (third, camelot_third)), facade, processes = serve_pipelines(fa, ms)
+    serve_none = {"flash_attention_bwd": fa.BWD_LAUNCHES,
+                  "decode_attention_packed": dec.LAUNCHES,
+                  "ssm_chunk_scan": sm.LAUNCHES}
+    emit({"phase": "serve_none", "launches_driver": serve_none})
+    if any(serve_none.values()):
+        raise AssertionError(f"served phases launched {serve_none}")
     # the decode path: the decode kernel's count from 0 before each
     # model's timed steps; the prefills before them count the others
     fa.LAUNCHES = ms.LAUNCHES = 0
@@ -2684,10 +3112,11 @@ def main() -> int:
                  for name in ("flash_attention_bhsd", "mlstm_chunk_step")}
     # the process phases' launches (counted in the workers), by phase
     processes_by = {name: {phase: n[name] for phase, n in processes.items()}
-                    for name in ("flash_attention_bhsd", "mlstm_chunk_step")}
+                    for name in WORKER_KERNELS}
     mlstm_row = timing_mlstm[0]           # the serving shape, L = 16
     decode_row = timing_decode[0]         # qwen3-0.6b's, B 4, Sc 2080
     ssm_row = timing_ssm[0]               # jamba's chunk at B 4
+    bwd_row = timing_bwd[0]               # qwen3-0.6b's, B 4, S 2048
     emit({"phase": "profiler", "profiles": len(LEAD_IN_LOST),
           "lead_in": PROFILE_LEAD_IN, "lead_in_lost": LEAD_IN_LOST})
     emit({"kernels": [{
@@ -2718,6 +3147,8 @@ def main() -> int:
         "launches_zoo_prefill": launches_zoo_prefill,
         "launches_decode_path_prefills":
             launches_decode_prefills["flash_attention_bhsd"],
+        "launches_train_qwen": train["qwen"]["launches_fwd_bwd"][0],
+        "launches_train_whisper": train["whisper"]["launches_fwd_bwd"][0],
         "max_abs_err": worst,
         "ms": main_row["ms"], "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2725,6 +3156,25 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "library_device_ms": main_row["library_device_ms"],
         "per_shape": timing}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "gradient of src/repro/kernels/flash_attention.py:89 "
+                    "(XLA autodiff of src/repro/models/attention.py:97 in "
+                    "the reference)",
+        "launches": train["qwen"]["launches_fwd_bwd"][1],
+        "launches_note": "3 timed make_train_step steps of qwen3-0.6b, "
+                         "full width and depth, B 4, S 2048",
+        "launches_train_whisper": train["whisper"]["launches_fwd_bwd"][1],
+        "launches_serve": serve_none["flash_attention_bwd"],
+        "launches_processes": sum(
+            processes_by["flash_attention_bwd"].values()),
+        "max_abs_err": worst_bwd,
+        "ms": bwd_row["ms"], "device_ms": bwd_row["device_ms"],
+        "plain_ms": bwd_row["plain_ms"], "bound_ms": bwd_row["bound_ms"],
+        "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"],
+        "library_device_ms": bwd_row["library_device_ms"],
+        "per_shape": timing_bwd}, {
         "name": "mlstm_chunk_step", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_scan.py:78",
@@ -2754,7 +3204,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/decode_attention.py:65",
         "launches": sum(launches_decode.values()),
         "launches_decode_by_model": launches_decode,
-        "launches_serve": 0, "max_abs_err": worst_decode,
+        "launches_serve": serve_none["decode_attention_packed"],
+        "launches_processes": sum(
+            processes_by["decode_attention_packed"].values()),
+        "max_abs_err": worst_decode,
         "max_err_over_row_max": worst_decode_row,
         "ms": decode_row["ms"], "device_ms": decode_row["device_ms"],
         "plain_ms": decode_row["plain_ms"],
@@ -2769,7 +3222,9 @@ def main() -> int:
         "launches": launches_jamba["ssm_chunk_scan"],
         "launches_note": "timed jamba-v0.1-52b prefill, B 4, S 2048, "
                          "16 layers",
-        "launches_serve": 0, "max_abs_err": worst_ssm,
+        "launches_serve": serve_none["ssm_chunk_scan"],
+        "launches_processes": sum(processes_by["ssm_chunk_scan"].values()),
+        "max_abs_err": worst_ssm,
         "ms": ssm_row["ms"], "device_ms": ssm_row["device_ms"],
         "plain_ms": ssm_row["plain_ms"], "bound_ms": ssm_row["bound_ms"],
         "bound_by": ssm_row["bound_by"], "library_ms": None,

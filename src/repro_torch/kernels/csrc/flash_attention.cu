@@ -14,6 +14,10 @@
 //   (src/repro/kernels/ref.py:attention_ref), so a row with no key left
 //   averages V over all Skv keys, as that oracle does.
 //   Online softmax with m, l and acc in fp32; out = acc / max(l, 1e-30).
+//   For training the caller may pass lse (B, H, Sq) fp32: each row's
+//   log-sum-exp of its scaled scores, which the backward
+//   (flash_attention_bwd.cu) recomputes P from; -inf for a row with no
+//   key left.  Serving passes null and pays one predicated branch.
 //
 // What bounds it on an H100: causal attention at the serving path's
 // prefill shape (B=4, S=2048, H=16, hd=128) needs 2*S^2*hd FLOPs per head
@@ -113,6 +117,15 @@ __device__ __forceinline__ float mask_score(float x, int qpos, int kpos,
   if ((p.causal && kpos > qpos) || (p.window > 0 && kpos <= qpos - p.window))
     return MASKED;
   return x;
+}
+
+// The row's log-sum-exp (natural log) of its scaled scores, for the
+// backward (flash_attention_bwd.cu): m the row max in the natural domain,
+// l the sum of exp(s - m).  A row with no key left (its max is still
+// MASKED) gets -inf, so the backward's P = exp(s - lse) is never formed
+// for it and its gradient is 0.
+__device__ __forceinline__ float row_lse(float m, float l, bool empty) {
+  return empty ? -INFINITY : m + logf(l);
 }
 
 // ---------------------------------------------------------------------------
@@ -399,7 +412,8 @@ __global__ void __launch_bounds__(TC_THREADS + 128, 1)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
-                            __nv_bfloat16* __restrict__ o, const Params p) {
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, const Params p) {
   using L = Tile<HD>;
   constexpr int HDP = L::HDP;
   constexpr int SN = TC_BKV / 2;
@@ -579,6 +593,12 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (lse != nullptr && lane % 4 == 0) {
+      // m is in the exp2 domain of the scaled scores: lse = m ln 2 + ln l
+      float* lb = lse + (size_t)bh * p.sq;
+      if (qpos0 < p.sq) lb[qpos0] = row_lse(m0 / LOG2E, l0, m0 == MASKED);
+      if (qpos1 < p.sq) lb[qpos1] = row_lse(m1 / LOG2E, l1, m1 == MASKED);
+    }
 #pragma unroll
     for (int i = 0; i < ON; i += 4) {
       const int col = 8 * (i / 4) + 2 * (lane % 4);
@@ -670,7 +690,8 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_attention_fp32_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
-                            float* __restrict__ o, const Params p) {
+                            float* __restrict__ o,
+                            float* __restrict__ lse, const Params p) {
   using L = Smem<HD>;
   extern __shared__ float smem[];
   float* Qs = smem + L::Q_OFF;
@@ -822,6 +843,8 @@ flash_attention_fp32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < CPT; ++j)
         ob[qpos * p.o_ss + ocol + TC * j] = acc[i][j] * inv;
+      if (lse != nullptr && ocol == 0)
+        lse[(size_t)bh * p.sq + qpos] = row_lse(Ms[r], Ls[r], Ms[r] == MASKED);
     }
   }
 }
@@ -832,7 +855,8 @@ flash_attention_fp32_kernel(const float* __restrict__ q,
 
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int bh, const Params& p, cudaStream_t stream) {
+                        float* lse, int bh, const Params& p,
+                        cudaStream_t stream) {
   const int b = bh / p.h;
   CUtensorMap mq, mk, mv;
   if (!make_map<HD>(&mq, q, b, p.h, p.sq, p.q_sb, p.q_sh, p.q_ss) ||
@@ -846,13 +870,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + TC_BQ - 1) / TC_BQ, bh);
   kern<<<grid, TC_THREADS + 128, bytes, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), p);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, p);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
-                        int bh, const Params& p, cudaStream_t stream) {
+                        float* lse, int bh, const Params& p,
+                        cudaStream_t stream) {
   auto kern = flash_attention_fp32_kernel<HD>;
   const size_t bytes = Smem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
@@ -861,28 +886,28 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((p.sq + BQ - 1) / BQ, bh);
   kern<<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), p);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, p);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(int hd, int dtype, const void* q, const void* k,
-                     const void* v, void* o, int bh, const Params& p,
-                     cudaStream_t s) {
+                     const void* v, void* o, float* lse, int bh,
+                     const Params& p, cudaStream_t s) {
   if (dtype == 0) {
     switch (hd) {
-      case 8: return launch_fp32<8>(q, k, v, o, bh, p, s);
-      case 16: return launch_fp32<16>(q, k, v, o, bh, p, s);
-      case 32: return launch_fp32<32>(q, k, v, o, bh, p, s);
-      case 64: return launch_fp32<64>(q, k, v, o, bh, p, s);
-      case 128: return launch_fp32<128>(q, k, v, o, bh, p, s);
+      case 8: return launch_fp32<8>(q, k, v, o, lse, bh, p, s);
+      case 16: return launch_fp32<16>(q, k, v, o, lse, bh, p, s);
+      case 32: return launch_fp32<32>(q, k, v, o, lse, bh, p, s);
+      case 64: return launch_fp32<64>(q, k, v, o, lse, bh, p, s);
+      case 128: return launch_fp32<128>(q, k, v, o, lse, bh, p, s);
     }
   } else if (dtype == 1) {
     switch (hd) {
-      case 8: return launch_bf16<8>(q, k, v, o, bh, p, s);
-      case 16: return launch_bf16<16>(q, k, v, o, bh, p, s);
-      case 32: return launch_bf16<32>(q, k, v, o, bh, p, s);
-      case 64: return launch_bf16<64>(q, k, v, o, bh, p, s);
-      case 128: return launch_bf16<128>(q, k, v, o, bh, p, s);
+      case 8: return launch_bf16<8>(q, k, v, o, lse, bh, p, s);
+      case 16: return launch_bf16<16>(q, k, v, o, lse, bh, p, s);
+      case 32: return launch_bf16<32>(q, k, v, o, lse, bh, p, s);
+      case 64: return launch_bf16<64>(q, k, v, o, lse, bh, p, s);
+      case 128: return launch_bf16<128>(q, k, v, o, lse, bh, p, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -893,10 +918,14 @@ cudaError_t dispatch(int hd, int dtype, const void* q, const void* k,
 // q (B, H, Sq, hd), k and v (B, KVH, Skv, hd), out (B, H, Sq, hd), each
 // addressed as base + b*strides[0] + head*strides[1] + pos*strides[2]
 // (elements; strides = q's three, k's, v's, out's), hd contiguous, every
-// row 16-byte aligned.  dtype: 0 = float32, 1 = bfloat16.  window <= 0
-// means no window.  Launches on `stream` and returns cudaGetLastError() (0 on success).
+// row 16-byte aligned.  lse: null, or (B, H, Sq) fp32 contiguous, where
+// each row's log-sum-exp of its scaled scores is written for the backward
+// (-inf for a row with no key left).  dtype: 0 = float32, 1 = bfloat16.
+// window <= 0 means no window.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* o, int b,
+                                         const void* v, void* o, float* lse,
+                                         int b,
                                          int h, int kvh, int sq, int skv,
                                          int hd, const long long* strides,
                                          int causal, int window, float scale,
@@ -916,7 +945,7 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
   p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
   p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
-  return (int)dispatch(hd, dtype, q, k, v, o, b * h, p,
+  return (int)dispatch(hd, dtype, q, k, v, o, lse, b * h, p,
                        static_cast<cudaStream_t>(stream));
 }
 

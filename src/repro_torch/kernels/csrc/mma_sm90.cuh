@@ -1,6 +1,7 @@
-// Warp-level building blocks shared by the decode-attention and mLSTM
-// kernels: cp.async copies into shared memory, ldmatrix, and the bf16
-// tensor-core product mma.sync.m16n8k16 with fp32 accumulation.
+// Warp-level building blocks shared by the decode-attention, mLSTM and
+// attention-backward kernels: cp.async copies into shared memory,
+// ldmatrix, and the bf16 tensor-core product mma.sync.m16n8k16 with fp32
+// accumulation.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * group + tig):
 //   A (16 x 16, row-major), a[0..3] of two bf16 each:

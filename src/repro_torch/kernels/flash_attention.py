@@ -10,9 +10,17 @@ and count each launch in ``LAUNCHES``: bf16 runs the tensor-core kernel
 the exact CUDA-core kernel.  They take no CPU tensor and never fall back:
 a failed build or launch raises.
 
+``flash_attention_bshd`` is differentiable: when grad is enabled and an
+input requires it, it runs through ``FlashAttentionFn``, whose forward
+also writes each row's log-sum-exp and whose backward launches
+``csrc/flash_attention_bwd.cu`` (counted in ``BWD_LAUNCHES``), the gradient
+the reference takes by XLA's autodiff of ``models/attention.py:flash_attn``.
+Serving (no grad) launches the forward alone, without the log-sum-exp.
+
 ``attention_plain`` is the same function in plain PyTorch, the twin of the
 reference oracle ``repro/kernels/ref.py:attention_ref``: the CPU path of
-``kernels.ops`` and the yardstick the kernels are held against on the card.
+``kernels.ops`` and the yardstick the kernels are held against on the card;
+autograd through it is the plain version of the backward.
 """
 from __future__ import annotations
 
@@ -30,10 +38,21 @@ HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_Y = 65535            # B*H rides the grid's y axis
 
-# launches of the CUDA kernel since the last reset (``LAUNCHES = 0``)
+# the backward's kernels, by their symbols' names: each launch runs the
+# delta pass, then dK/dV and dQ on the tensor cores (bf16 at hd 64 and
+# 128) or on the CUDA cores (fp32, and bf16 at hd 8-32); ``bwd_passes``
+# names those of one launch
+BWD_TC = ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel", "bwd_delta_kernel")
+BWD_CC = ("bwd_dq_kernel", "bwd_dkdv_kernel", "bwd_delta_kernel")
+BWD_KERNELS = BWD_TC[:2] + BWD_CC
+
+# launches of the forward kernel and of the backward (its three passes
+# count as one) since the last reset (``LAUNCHES = 0``, ``BWD_LAUNCHES = 0``)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
 _fn = None
+_bwd_fn = None
 
 
 def _entry():
@@ -42,13 +61,32 @@ def _entry():
     global _fn
     if _fn is None:
         fn = _build.load().repro_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.POINTER(ctypes.c_longlong)]
                        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
                                                ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _bwd_entry():
+    """The backward's C entry point, its argument types declared."""
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = _build.load().repro_flash_attention_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def bwd_passes(hd: int, dtype: torch.dtype) -> tuple:
+    """The kernels one backward launch runs at head dim ``hd``."""
+    return BWD_TC if dtype == torch.bfloat16 and hd >= 64 else BWD_CC
 
 
 def _check(q, k, v, num_heads: int, num_kv_heads: int,
@@ -87,42 +125,67 @@ def _check_bshd(q, k, v, window: Optional[int]) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def has_empty_rows(sq: int, skv: int, window: Optional[int]) -> bool:
+    """Whether some query row sees no key: row i sees keys j < Skv with
+    j > i - window (and j <= i when causal, which key 0 always meets), so
+    only a window can empty a row, the last ones, when Sq >= Skv +
+    window."""
+    return window is not None and sq >= skv + window
+
+
 def _require_cuda(q) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"the attention kernel runs on CUDA tensors, got "
                          f"{q.device}; the CPU path is attention_plain")
 
 
-def _launch(q, k, v, out, causal: bool, window: Optional[int]) -> None:
-    """Run the kernel on (B, H, Sq, hd) q and out and (B, KVH, Skv, hd) k
-    and v, any views whose head_dim is contiguous and whose rows are
-    16-byte aligned; ``out`` is written in place."""
-    global LAUNCHES
+def _check_launch(q, k, v, tensors) -> None:
+    """The kernels' common refusals: (B, H, Sq, hd) q and (B, KVH, Skv, hd)
+    k, v on one CUDA device, float32 or bfloat16 alike, a head dim they
+    take, and every tensor of ``tensors`` (name -> view) with hd contiguous
+    and rows 16-byte aligned."""
     _require_cuda(q)
-    if any(t.device != q.device for t in (k, v, out)):
+    if any(t.device != q.device for t in tensors.values()):
         raise ValueError("q, k, v must be on one device")
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype
-                                          for t in (k, v, out)):
+                                          for t in tensors.values()):
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the kernel "
                          f"takes float32 or bfloat16, all alike")
-    b, h, sq, hd = q.shape
-    kvh, skv = k.shape[1], k.shape[2]
+    b, h, _, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if b * h > MAX_GRID_Y:
         raise ValueError(f"B*H = {b * h} exceeds the grid limit {MAX_GRID_Y}")
     vec = 16 // q.element_size()          # the kernel's 16-byte rows
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+    for name, t in tensors.items():
         if t.stride(3) != 1 or t.data_ptr() % 16 \
                 or any(s % vec for s in t.stride()[:3]):
             raise ValueError(f"{name}: head_dim must be contiguous and every "
                              f"row 16-byte aligned, strides {t.stride()}")
+
+
+def _launch(q, k, v, out, causal: bool, window: Optional[int],
+            lse: Optional[torch.Tensor] = None) -> None:
+    """Run the kernel on (B, H, Sq, hd) q and out and (B, KVH, Skv, hd) k
+    and v, any views whose head_dim is contiguous and whose rows are
+    16-byte aligned; ``out`` is written in place, and so is ``lse`` ((B, H,
+    Sq) fp32 contiguous, each row's log-sum-exp) where one is given."""
+    global LAUNCHES
+    _check_launch(q, k, v, {"q": q, "k": k, "v": v, "out": out})
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    if lse is not None and (lse.shape != (b, h, sq) or not lse.is_contiguous()
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device):
+        raise ValueError(f"lse must be ({b}, {h}, {sq}) float32 contiguous "
+                         f"on {q.device}")
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), b, h, kvh, sq, skv, hd, strides,
+                       out.data_ptr(), None if lse is None else lse.data_ptr(),
+                       b, h, kvh, sq, skv, hd, strides,
                        int(causal), -1 if window is None else window,
                        1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype], stream)
     if err != 0:
@@ -130,6 +193,35 @@ def _launch(q, k, v, out, causal: bool, window: Optional[int]) -> None:
                            f"error {err}")
     with _count_lock:
         LAUNCHES += 1
+
+
+def _launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, causal: bool,
+                window: Optional[int]) -> None:
+    """Run the backward on (B, H, Sq, hd) q, out, dout, dq and (B, KVH,
+    Skv, hd) k, v, dk, dv views (hd contiguous, rows 16-byte aligned) and
+    the forward's (B, H, Sq) lse; dq, dk, dv are written in place."""
+    global BWD_LAUNCHES
+    _check_launch(q, k, v, {"q": q, "k": k, "v": v, "out": out,
+                            "dout": dout, "dq": dq, "dk": dk, "dv": dv})
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, out, dout, dq, dk, dv)
+          for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, kvh, sq, skv, hd, strides,
+            int(causal), -1 if window is None else window,
+            1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention backward launch failed: CUDA "
+                           f"error {err}")
+    with _count_lock:
+        BWD_LAUNCHES += 1
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -152,14 +244,60 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Prefill attention with its gradient, both by the CUDA kernels, in
+    the model's layout.  The forward launches ``flash_attention.cu`` and
+    keeps q, k, v, the output and each row's log-sum-exp; the backward
+    launches ``flash_attention_bwd.cu`` and returns dq, dk, dv (B, S, H,
+    hd) contiguous in q's dtype.  Under ``torch.utils.checkpoint`` the
+    forward runs again in the backward, and the tensors of that run are
+    the ones its backward reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        b, sq, h, _ = q.shape
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+        _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                out.transpose(1, 2), causal, window, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # a no-op for the contiguous gradient autograd hands back from the
+        # contiguous output; the kernel then reads it through its strides
+        dout = dout.contiguous()
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        _launch_bwd(*(t.transpose(1, 2) for t in (q, k, v, out, dout)), lse,
+                    *(t.transpose(1, 2) for t in (dq, dk, dv)),
+                    ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd), any strides with hd
     contiguous and rows 16-byte aligned -> (B, Sq, H, hd) contiguous in
     q's dtype, by the CUDA kernel on the current stream.  Nothing is
-    copied: the kernel reads the inputs and writes the output in place."""
+    copied: the kernel reads the inputs and writes the output in place.
+    When grad is enabled and an input requires it, the call goes through
+    ``FlashAttentionFn`` (its backward a kernel too); otherwise the
+    forward alone runs, writing no log-sum-exp."""
     _check_bshd(q, k, v, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if has_empty_rows(q.shape[1], k.shape[1], window):
+            raise ValueError(
+                f"Sq {q.shape[1]} >= Skv {k.shape[1]} + window {window} "
+                f"leaves query rows with no key: their output is the mean "
+                f"of V, whose gradient the backward kernel does not give; "
+                f"no gradient through such a call")
+        return FlashAttentionFn.apply(q, k, v, causal, window)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             out.transpose(1, 2), causal, window)

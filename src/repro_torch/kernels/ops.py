@@ -8,7 +8,13 @@ hand-written kernel (``flash_attention_bshd``, ``decode_attention_packed``,
 version (``attention_plain``, ``decode_attention_plain``,
 ``mlstm_chunk_plain``, ``ssm_chunk_scan_plain``).  There is no other
 switch, and a CUDA tensor never reaches a plain version through these
-functions.  ``flash_attention_plain``, ``decode_attention_plain``,
+functions.  On the card only prefill attention is differentiable (its
+backward is a kernel too, ``flash_attention_bwd.cu``): the decode, mLSTM
+and selective-scan kernels have no backward yet, so a CUDA call to them
+under grad with an input that requires it raises ``NotImplementedError``
+rather than return an output that autograd cannot see through (ROADMAP
+Queue A 4b).  On the CPU autograd differentiates the plain versions.
+``flash_attention_plain``, ``decode_attention_plain``,
 ``mlstm_chunk_plain`` and ``ssm_scan_plain`` run the plain version on any
 device, for holding the kernel against it.
 """
@@ -23,6 +29,15 @@ from repro_torch.kernels import mlstm_scan
 from repro_torch.kernels import ssm_scan as scan_mod
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention_bshd)
+
+
+def _no_backward(name: str, *inputs) -> None:
+    """Raise when a kernel without a backward is asked for a gradient."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in inputs):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the card yet (ROADMAP Queue A "
+            f"4b): call it under torch.no_grad() or on CPU tensors")
 
 
 def _to_bhsd(x: torch.Tensor) -> torch.Tensor:
@@ -44,7 +59,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd) -> (B, Sq, H, hd).  On
     the card the kernel reads q, k, v and writes the output in this layout
-    in place; the plain version works on (B·H, S, hd) copies."""
+    in place, and under grad its backward kernel gives dq, dk, dv
+    (``FlashAttentionFn``); the plain version works on (B·H, S, hd)
+    copies."""
     if q.device.type == "cuda":
         return flash_attention_bshd(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
@@ -75,6 +92,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, 1, H, hd); k, v: (B, Sc, KVH, hd); valid: host int, the
     number of leading valid cache slots -> (B, 1, H, hd)."""
     if q.device.type == "cuda":
+        _no_backward("decode attention", q, k, v)
         return _packed(decode_mod.decode_attention_packed, q, k, v, valid)
     if q.device.type == "cpu":
         return _packed(decode_mod.decode_attention_plain, q, k, v, valid)
@@ -107,6 +125,7 @@ def mlstm_chunk(q, k, v, i_raw, f_raw, c, n, m):
     q, k, v (B, H, L, hd); i_raw, f_raw (B, H, L); carry c (B, H, hd, hd),
     n (B, H, hd), m (B, H).  Returns (h (B, H, L, hd) fp32, (c, n, m))."""
     if q.device.type == "cuda":
+        _no_backward("the mLSTM chunk", q, k, v, i_raw, f_raw, c, n, m)
         return _bh(mlstm_scan.mlstm_chunk_step, q, k, v, i_raw, f_raw,
                    c, n, m)
     if q.device.type == "cpu":
@@ -124,6 +143,7 @@ def ssm_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
     """The within-chunk selective scan: da, dbx (B, L, D, ST) fp32 -> all
     h_t (B, L, D, ST) fp32, h_t = da_t * h_{t-1} + dbx_t from h_0 = 0."""
     if da.device.type == "cuda":
+        _no_backward("the selective scan", da, dbx)
         return scan_mod.ssm_chunk_scan(da, dbx)
     if da.device.type == "cpu":
         return scan_mod.ssm_chunk_scan_plain(da, dbx)

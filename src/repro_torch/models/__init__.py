@@ -17,6 +17,7 @@ from repro_torch.models.transformer import (
     from_jax_params,
     param_bytes,
     sinusoidal_pos,
+    to_jax_params,
 )
 from repro_torch.models.xlstm import (
     MLSTM_CHUNK,
@@ -38,4 +39,4 @@ __all__ = ["KVCache", "MLSTM_CHUNK", "MLSTMState", "MambaState",
            "make_mlstm_state", "make_slstm_state", "mamba_decode",
            "mamba_mix", "mlstm_decode", "mlstm_mix", "moe_forward",
            "moe_forward_decode", "param_bytes", "route", "sinusoidal_pos",
-           "slstm_decode", "slstm_mix"]
+           "slstm_decode", "slstm_mix", "to_jax_params"]

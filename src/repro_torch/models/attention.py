@@ -158,9 +158,9 @@ def cross_attn_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     """Cross-attention: queries from x (B, S, d), K/V the encoder's
     (``encode_cross_kv``), every key visible.  Returns (B, S, d).
 
-    Prefill goes through ``attention`` with ``causal=False``.  Decode
-    (x (B, 1, d)) goes through ``decode_attention`` with ``valid`` the
-    whole encoder length: for one query token that is the reference's
+    Prefill (and train) goes through ``attention`` with ``causal=False``.
+    Decode (x (B, 1, d)) goes through ``decode_attention`` with ``valid``
+    the whole encoder length: for one query token that is the reference's
     non-causal ``flash_attn`` at Sq = 1, and it is the shape the decode
     kernel is built for (the prefill kernel would fill one of its 128
     query rows).  The port makes this choice; the reference runs
@@ -175,7 +175,7 @@ def cross_attn_forward(x: torch.Tensor, p: Mapping[str, torch.Tensor],
         q = head_rms_norm(q, p["q_norm"], cfg.norm_eps)
     if mode == "decode":
         out = decode_attention(q, enc_kv.k, enc_kv.v, enc_kv.k.shape[1])
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         out = attention(q, enc_kv.k, enc_kv.v, causal=False, window=None)
     else:
         raise ValueError(f"cross-attention mode {mode!r}")

@@ -1,5 +1,5 @@
-"""Shared layers: norms, RoPE, causal conv, SwiGLU MLP, seeded init, device
-resolution."""
+"""Shared layers: norms, RoPE, causal conv, SwiGLU MLP, the training loss,
+seeded init, device resolution."""
 from __future__ import annotations
 
 from typing import Sequence, Union
@@ -111,3 +111,22 @@ def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = x @ w_up
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ w_down
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross entropy in fp32 (twin of the reference's
+    ``cross_entropy_loss``): logits (B, S, V) in any dtype, labels (B, S).
+    The row max is detached (the reference's ``stop_gradient``) and
+    subtracted in the logits' dtype, the rest runs in fp32; the gold logit
+    is gathered, where the reference takes it by an iota match (the same
+    value and gradient)."""
+    lmax = logits.max(dim=-1, keepdim=True).values.detach()
+    shifted = (logits - lmax).float()
+    sumexp = shifted.exp().sum(dim=-1)
+    gold = shifted.gather(-1, labels.long()[..., None])[..., 0]
+    return (sumexp.log() - gold).mean()

@@ -82,7 +82,8 @@ def _ssm_inputs(xc: torch.Tensor, p, cfg: ModelConfig):
 def mamba_mix(x: torch.Tensor, p, cfg: ModelConfig, state: MambaState,
               chunk: int = SSM_CHUNK, ssm: SSMFn = ops.ssm_scan
               ) -> Tuple[torch.Tensor, MambaState]:
-    """Sequence-mix a full segment (prefill).  x: (B, S, d).  Runs
+    """Sequence-mix a full segment (prefill, or training from a zero
+    state, where autograd differentiates it on the CPU).  x: (B, S, d).  Runs
     ceil(S / min(chunk, S)) chunks, each scanned through ``ssm``; the
     padded steps of the last chunk are identity transitions (da = 1,
     dbx = 0)."""
@@ -102,8 +103,11 @@ def mamba_mix(x: torch.Tensor, p, cfg: ModelConfig, state: MambaState,
             xcb = F.pad(xcb, (0, 0, 0, chunk - n_valid))
         da, dbx, cmat = _ssm_inputs(xcb, p, cfg)
         if n_valid < chunk:
-            da[:, n_valid:] = 1.0
-            dbx[:, n_valid:] = 0.0
+            # out of place (autograd keeps exp's output for its backward)
+            valid = (torch.arange(chunk, device=x.device)
+                     < n_valid)[None, :, None, None]
+            da = torch.where(valid, da, 1.0)
+            dbx = torch.where(valid, dbx, 0.0)
         hs = ssm(da, dbx)                                    # (B,L,inner,st)
         # fold in the carried state: h_t += (prod_{r<=t} da_r) * h_in
         hs = hs + torch.cumprod(da, dim=1) * h[:, None]

@@ -13,11 +13,14 @@ xlstm-1.3b (7 MLSTM + 1 SLSTM), jamba-v0.1-52b (7 MAMBA + 1 ATTN, every
 other MLP a mixture of experts) and whisper-medium (24 CROSS decoder
 layers over a 24-layer encoder, sinusoidal positions instead of RoPE).
 Entry points: ``serve_prefill`` (the prompt, and for an encoder-decoder
-the encoder's frames) and ``serve_decode`` (one token per sequence after
-it).
+the encoder's frames), ``serve_decode`` (one token per sequence after
+it) and ``forward_train`` (the mean token loss of a batch, which autograd
+differentiates; ``repro_torch.training`` builds the train step on it).
 The reference scans one superblock over stacked parameters; here the
 layers are a plain Python loop over a ``ModuleList``, layer ``li`` of
 kind ``block_pattern[li % period]``, and the encoder's layers another.
+Training rematerialises each layer (``torch.utils.checkpoint``), where the
+reference rematerialises each superblock: the same values.
 
 Weights keep the reference's ``(in, out)`` layout and are applied as
 ``x @ W`` (not transposed to ``nn.Linear``'s ``(out, in)``), so a
@@ -26,12 +29,14 @@ parameter tree of the reference converts leaf by leaf
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Mapping, NamedTuple, Optional, Union
+from typing import Dict, List, Mapping, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, CROSS, MAMBA, MLSTM, SLSTM,
                                      ModelConfig)
@@ -42,8 +47,9 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (AttentionFn, DecodeAttentionFn,
                                           KVCache)
-from repro_torch.models.common import (dense_init, embed_init,
-                                       resolve_device, rms_norm, swiglu_mlp)
+from repro_torch.models.common import (cross_entropy_loss, dense_init,
+                                       embed_init, resolve_device, rms_norm,
+                                       swiglu_mlp)
 from repro_torch.models.ssm import MambaState, SSMFn
 from repro_torch.models.xlstm import MLSTMFn, MLSTMState, SLSTMState
 
@@ -172,7 +178,9 @@ class Transformer(nn.Module):
 
     Constructed from a seed (``torch.Generator`` on the target device) or,
     through ``from_jax_params``, from the reference's parameters.
-    ``device=None`` means the card and raises without one.
+    ``device=None`` means the card and raises without one.  Parameters are
+    made with ``requires_grad=False``: serving never builds a graph, and
+    the train step (``training.make_train_step``) turns them on.
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None,
@@ -290,12 +298,23 @@ class Transformer(nn.Module):
                attention: AttentionFn = ops.flash_attention,
                decode_attention: DecodeAttentionFn = ops.decode_attention,
                mlstm: MLSTMFn = ops.mlstm_chunk, ssm: SSMFn = ops.ssm_scan):
-        """One layer, ``mode`` "prefill" (the segment) or "decode" (one
-        token at position ``pos``).  A CROSS layer attends to ``cross_kv``
-        (the encoder's K/V) after its causal self-attention."""
+        """One layer, ``mode`` "prefill" (the segment), "train" (the
+        segment from a fresh zero recurrent state, no cache) or "decode"
+        (one token at position ``pos``).  A CROSS layer attends to
+        ``cross_kv`` (the encoder's K/V) after its causal self-attention.
+        Returns (h, the layer's new state, the MoE load-balance loss or
+        None)."""
         cfg = self.cfg
         x = rms_norm(h, p["norm1"], cfg.norm_eps)
         decode = mode == "decode"
+        if mode == "train":
+            b = x.shape[0]
+            if kind == MAMBA:
+                cache = ssm_mod.make_mamba_state(b, cfg, x.dtype, x.device)
+            elif kind == MLSTM:
+                cache = xlstm_mod.make_mlstm_state(b, cfg, x.dtype, x.device)
+            elif kind == SLSTM:
+                cache = xlstm_mod.make_slstm_state(b, cfg, x.device)
         if kind in (ATTN, CROSS):
             out, new_cache = attn_mod.attn_forward(
                 x, p, cfg, positions=positions, mode=mode, cache=cache,
@@ -317,36 +336,47 @@ class Transformer(nn.Module):
             h = h + attn_mod.cross_attn_forward(
                 xc, cross_params(p), cfg, cross_kv, mode=mode,
                 attention=attention, decode_attention=decode_attention)
+        aux = None
         if mlp_kind == "dense":
             x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
             h = h + swiglu_mlp(x2, p["w_gate"], p["w_up"], p["w_down"])
         elif mlp_kind == "moe":
             x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
-            h = h + (moe_mod.moe_forward_decode(x2, p, cfg) if decode
-                     else moe_mod.moe_forward(x2, p, cfg)[0])
-        return h, new_cache
+            if decode:
+                h = h + moe_mod.moe_forward_decode(x2, p, cfg)
+            else:
+                out2, aux = moe_mod.moe_forward(x2, p, cfg)
+                h = h + out2
+        return h, new_cache, aux
+
+    def _enc_layer(self, h: torch.Tensor, p: Mapping[str, torch.Tensor],
+                   attention: AttentionFn) -> torch.Tensor:
+        cfg = self.cfg
+        b, s, _ = h.shape
+        x = rms_norm(h, p["norm1"], cfg.norm_eps)
+        q, k, v = attn_mod.project_qkv(x, p, cfg, None)
+        out = attention(q, k, v, causal=False, window=None)
+        h = h + out.reshape(b, s, -1) @ p["wo"]
+        x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
+        return h + swiglu_mlp(x2, p["w_gate"], p["w_up"], p["w_down"])
 
     def encode(self, frames: torch.Tensor,
-               attention: AttentionFn = ops.flash_attention
-               ) -> torch.Tensor:
+               attention: AttentionFn = ops.flash_attention,
+               remat: bool = False) -> torch.Tensor:
         """The encoder: frames (B, S_enc, d), the stubbed front end's
         embeddings, plus the sinusoidal table at 0..S_enc-1, then per
         layer RMSNorm -> QKV -> attention with no mask -> ``wo`` ->
         residual, RMSNorm -> SwiGLU -> residual; then ``enc_final_norm``.
-        ``attention`` is called with ``causal=False``."""
+        ``attention`` is called with ``causal=False``.  ``remat``
+        rematerialises each layer in the backward."""
         cfg = self.cfg
         if not cfg.encoder_decoder:
             raise ValueError(f"{cfg.name} has no encoder")
-        b, s, _ = frames.shape
+        s = frames.shape[1]
         positions = torch.arange(s, device=frames.device)[None]
         h = frames + sinusoidal_pos(positions, cfg.d_model).to(frames.dtype)
         for p in self.enc_layers:
-            x = rms_norm(h, p["norm1"], cfg.norm_eps)
-            q, k, v = attn_mod.project_qkv(x, p, cfg, None)
-            out = attention(q, k, v, causal=False, window=None)
-            h = h + out.reshape(b, s, -1) @ p["wo"]
-            x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
-            h = h + swiglu_mlp(x2, p["w_gate"], p["w_up"], p["w_down"])
+            h = _maybe_remat(remat, self._enc_layer, h, p, attention)
         return rms_norm(h, self.enc_final_norm, cfg.norm_eps)
 
     def serve_prefill(self, tokens: torch.Tensor,
@@ -382,10 +412,10 @@ class Transformer(nn.Module):
                                                caches):
             ckv = attn_mod.encode_cross_kv(enc_out, cross_params(p), cfg) \
                 if kind == CROSS else None
-            h, c = self._block(h, p, kind, mlp_kind, mode="prefill",
-                               positions=positions, cache=cache,
-                               cross_kv=ckv, attention=attention,
-                               mlstm=mlstm, ssm=ssm)
+            h, c, _ = self._block(h, p, kind, mlp_kind, mode="prefill",
+                                  positions=positions, cache=cache,
+                                  cross_kv=ckv, attention=attention,
+                                  mlstm=mlstm, ssm=ssm)
             new_caches.append(c)
             cross.append(ckv)
         h = rms_norm(h[:, -1:], self.final_norm, cfg.norm_eps)
@@ -420,15 +450,78 @@ class Transformer(nn.Module):
         new_caches = []
         for p, (kind, mlp_kind), state, ckv in zip(
                 self.layers, self.kinds, cache.layers, cross):
-            h, c = self._block(h, p, kind, mlp_kind, mode="decode",
-                               positions=positions, cache=state, pos=pos,
-                               cross_kv=ckv,
-                               decode_attention=decode_attention)
+            h, c, _ = self._block(h, p, kind, mlp_kind, mode="decode",
+                                  positions=positions, cache=state, pos=pos,
+                                  cross_kv=ckv,
+                                  decode_attention=decode_attention)
             new_caches.append(c)
         h = rms_norm(h, self.final_norm, self.cfg.norm_eps)
         logits = self.lm_logits(h)[:, 0]
         return logits, ModelCache(layers=new_caches, pos=pos + 1,
                                   cross=cache.cross)
+
+    def _train_layer(self, h: torch.Tensor, enc_out: Optional[torch.Tensor],
+                     p: Mapping[str, torch.Tensor], kind: str, mlp_kind: str,
+                     positions: torch.Tensor, attention: AttentionFn,
+                     mlstm: MLSTMFn, ssm: SSMFn):
+        ckv = attn_mod.encode_cross_kv(enc_out, cross_params(p), self.cfg) \
+            if kind == CROSS else None
+        h, _, aux = self._block(h, p, kind, mlp_kind, mode="train",
+                                positions=positions, cache=None,
+                                cross_kv=ckv, attention=attention,
+                                mlstm=mlstm, ssm=ssm)
+        return h, aux
+
+    def forward_train(self, tokens: torch.Tensor, labels: torch.Tensor,
+                      frames: Optional[torch.Tensor] = None,
+                      remat: bool = True,
+                      attention: AttentionFn = ops.flash_attention,
+                      mlstm: MLSTMFn = ops.mlstm_chunk,
+                      ssm: SSMFn = ops.ssm_scan) -> torch.Tensor:
+        """The training loss of a batch (twin of the reference's
+        ``forward_train``): tokens, labels (B, S) -> the mean token cross
+        entropy (fp32) plus the MoE layers' load-balance losses.
+
+        Every layer runs in "train" mode: attention causal over the
+        segment, the recurrent mixers from a zero state; an
+        encoder-decoder model needs ``frames`` (B, S_enc, d), which its
+        encoder runs over in the model's dtype (cast here; the reference
+        promotes the encoder to the frames' fp32), and each CROSS layer
+        attends to the K/V of the encoder's output.  ``remat``
+        rematerialises each layer (and each encoder layer) in the backward
+        through ``torch.utils.checkpoint``.  ``attention``, ``mlstm`` and
+        ``ssm`` replace the ops, as in ``serve_prefill`` (on the card only
+        attention has a backward kernel: the other two raise under
+        grad)."""
+        cfg = self.cfg
+        if cfg.encoder_decoder != (frames is not None):
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder loss needs the encoder's "
+                f"frames, and only it takes them")
+        s = tokens.shape[1]
+        positions = torch.arange(s, device=tokens.device)[None]
+        enc_out = None if frames is None else self.encode(
+            frames.to(self.dtype), attention, remat=remat)
+        h = self.embed_tokens(tokens, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for p, (kind, mlp_kind) in zip(self.layers, self.kinds):
+            layer = functools.partial(
+                self._train_layer, p=p, kind=kind, mlp_kind=mlp_kind,
+                positions=positions, attention=attention, mlstm=mlstm,
+                ssm=ssm)
+            h, a = _maybe_remat(remat, layer, h, enc_out)
+            if a is not None:
+                aux = aux + a
+        h = rms_norm(h, self.final_norm, cfg.norm_eps)
+        return cross_entropy_loss(self.lm_logits(h), labels) + aux
+
+
+def _maybe_remat(remat: bool, fn, *args):
+    """``fn(*args)``, rematerialised in the backward when ``remat`` and
+    grad is enabled (non-reentrant ``torch.utils.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def sinusoidal_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -513,3 +606,65 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, *, device=None,
             put_layer(p, enc, li, f"encoder layer {li}")
         put(model.enc_final_norm, tree["enc_final_norm"])
     return model
+
+
+def _nest_block(flat: Mapping, cfg: ModelConfig, kind: str,
+                mlp_kind: str) -> dict:
+    """One layer's flat leaves regrouped into the reference's subtree
+    (the inverse of ``_flat_block``)."""
+    mix = {ATTN: _attn_shapes, CROSS: _attn_shapes,
+           MAMBA: ssm_mod.mamba_param_shapes,
+           MLSTM: xlstm_mod.mlstm_param_shapes,
+           SLSTM: xlstm_mod.slstm_param_shapes}[kind](cfg)
+    blk = {"norm1": flat["norm1"], "mix": {n: flat[n] for n in mix}}
+    if kind == CROSS:
+        blk["norm_cross"] = flat["norm_cross"]
+        blk["cross"] = cross_params(flat)
+    if mlp_kind != "none":
+        mlp = ("w_gate", "w_up", "w_down") if mlp_kind == "dense" \
+            else moe_mod.moe_param_shapes(cfg)
+        blk["norm2"] = flat["norm2"]
+        blk["mlp"] = {n: flat[n] for n in mlp}
+    return blk
+
+
+def to_jax_params(model: Transformer,
+                  tensors: Optional[Mapping[str, torch.Tensor]] = None
+                  ) -> dict:
+    """The model's parameters as the reference's tree: the inverse of
+    ``from_jax_params``.
+
+    ``tensors`` maps the model's parameter names (``named_parameters``)
+    to tensors of their shapes, e.g. their gradients; by default the
+    parameters themselves.  Leaves are float32 numpy arrays (a bf16 value
+    is exact in float32), each pattern position's layers stacked on a
+    leading superblock axis as the reference stacks them, the encoder's
+    over its layers; so ``to_jax_params(from_jax_params(tree, cfg))``
+    equals ``tree`` (cast to float32) bit for bit."""
+    cfg = model.cfg
+    named = dict(model.named_parameters()) if tensors is None else tensors
+
+    def leaf(name: str) -> np.ndarray:
+        return named[name].detach().float().cpu().numpy()
+
+    def stacked(layers: List[int], prefix: str, kind: str,
+                mlp_kind: str) -> dict:
+        shapes = _layer_shapes(cfg, kind, mlp_kind)
+        flat = {n: np.stack([leaf(f"{prefix}.{li}.{n}") for li in layers])
+                for n in shapes}
+        return _nest_block(flat, cfg, kind, mlp_kind)
+
+    tree: Dict[str, object] = {"embed": leaf("embed"),
+                               "final_norm": leaf("final_norm")}
+    if model.lm_head is not None:
+        tree["lm_head"] = leaf("lm_head")
+    period = len(cfg.block_pattern)
+    tree["blocks"] = tuple(
+        stacked(list(range(j, cfg.num_layers, period)), "layers", kind,
+                mlp_kind)
+        for j, (kind, mlp_kind) in enumerate(model.kinds[:period]))
+    if cfg.encoder_decoder:
+        tree["enc_blocks"] = stacked(list(range(len(model.enc_layers))),
+                                     "enc_layers", ATTN, "dense")
+        tree["enc_final_norm"] = leaf("enc_final_norm")
+    return tree

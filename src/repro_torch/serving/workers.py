@@ -40,7 +40,7 @@ crash remain readable) and the engine replays its in-flight batches within
 the existing retry budget.
 
 Observability: on its stop sentinel a worker posts an exit report — its
-stage servers' ``calls`` and its kernel modules' ``LAUNCHES`` — which
+stage servers' ``calls`` and its kernels' launch counts — which
 ``WorkerPool.close()`` collects by worker, so a driver can show that the
 kernels ran in the workers.
 """
@@ -75,12 +75,17 @@ WorkerDone = Tuple[int, int, object, float, Optional[str], Optional[str],
 _READY = -1
 _EXIT = -2
 
-#: the kernels whose ``LAUNCHES`` a worker reports on exit, by name
+#: the kernels whose launch counts a worker reports on exit, by name: the
+#: module and its counter
 KERNEL_MODULES = {
-    "flash_attention_bhsd": "repro_torch.kernels.flash_attention",
-    "mlstm_chunk_step": "repro_torch.kernels.mlstm_scan",
-    "decode_attention_packed": "repro_torch.kernels.decode_attention",
-    "ssm_chunk_scan": "repro_torch.kernels.ssm_scan",
+    "flash_attention_bhsd": ("repro_torch.kernels.flash_attention",
+                             "LAUNCHES"),
+    "flash_attention_bwd": ("repro_torch.kernels.flash_attention",
+                            "BWD_LAUNCHES"),
+    "mlstm_chunk_step": ("repro_torch.kernels.mlstm_scan", "LAUNCHES"),
+    "decode_attention_packed": ("repro_torch.kernels.decode_attention",
+                                "LAUNCHES"),
+    "ssm_chunk_scan": ("repro_torch.kernels.ssm_scan", "LAUNCHES"),
 }
 
 
@@ -232,8 +237,8 @@ def _exit_report(tenants, calls0) -> dict:
     return {"calls": [[None if c is None else c - c0
                        for c, c0 in zip(row, row0)]
                       for row, row0 in zip(_calls(tenants), calls0)],
-            "launches": {name: importlib.import_module(mod).LAUNCHES
-                         for name, mod in KERNEL_MODULES.items()}}
+            "launches": {name: getattr(importlib.import_module(mod), count)
+                         for name, (mod, count) in KERNEL_MODULES.items()}}
 
 
 def _worker_main(wid: int, task_q, done_q, stages_blob: bytes,

@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA kernels against their plain versions, the
-entry points' default device, and the process backend's device arena
-(CUDA IPC between spawned processes).  Every test here needs a CUDA device and
+"""The port on the card: the CUDA kernels against their plain versions (the
+prefill-attention backward against autograd through the plain version),
+the entry points' default device, training through the kernels, and the
+process backend's device arena (CUDA IPC between spawned processes).  Every test here needs a CUDA device and
 ``nvcc`` and skips without them.  The file imports neither jax nor the JAX
 package, so it also runs on a machine that has only PyTorch:
 
@@ -185,6 +186,118 @@ def test_cuda_stage_server_defaults_to_the_card(card):
     out = stage.process(torch.zeros(2, 8, dtype=torch.int32, device="cuda"))
     assert out.device.type == "cuda"
     assert out.dtype == torch.int32 and out.shape == (2,)
+
+
+# attention backward: (B, Sq, Skv, H, KVH, hd, causal, window) at the
+# model zoo's heads (qwen3 16/8/128, qwen1.5 16/16/64, starcoder2's window,
+# granite's MQA G 48, whisper's encoder and cross-attention), shortened
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal,window", [
+    (2, 200, 200, 16, 8, 128, True, None),
+    (2, 131, 131, 16, 16, 64, True, None),
+    (1, 300, 300, 24, 2, 128, True, 100),
+    (1, 130, 130, 48, 1, 128, True, None),
+    (2, 150, 150, 16, 16, 64, False, None),
+    (2, 45, 150, 16, 16, 64, False, None),
+    # window 2, not 1: a one-key softmax has dq = dk = 0 exactly, which a
+    # bound relative to the plain gradient cannot hold the kernel to
+    (2, 70, 70, 4, 2, 8, True, 2),
+    (2, 33, 77, 4, 2, 16, True, None),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_backward_matches_plain(card, b, sq, skv, h, kvh, hd,
+                                               causal, window, dtype):
+    """dq, dk, dv of the backward kernel against autograd through the
+    plain version in fp32 on the same (rounded) inputs, each within 1e-3
+    (fp32) or 2e-2 (bf16: the output and the gradients rounded to bf16) of
+    the plain gradient's largest entry."""
+    q, dout = (torch.randn(b, sq, h, hd, generator=card,
+                           device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, skv, kvh, hd, generator=card,
+                        device="cuda").to(dtype) for _ in range(2))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+    out = ops.flash_attention(*leaves, causal=causal, window=window)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - fwd, fa.BWD_LAUNCHES - bwd) == (1, 1)
+    ref_leaves = [t.float().clone().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(ops.flash_attention_plain(
+        *ref_leaves, causal=causal, window=window), ref_leaves, dout.float())
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert (g.float() - r).abs().max() <= tol * r.abs().max()
+
+
+def test_cuda_serving_writes_no_lse_and_launches_no_backward(card):
+    q = torch.randn(1, 64, 4, 64, generator=card, device="cuda")
+    k = torch.randn(1, 64, 2, 64, generator=card, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, k)]
+    bwd = fa.BWD_LAUNCHES
+    with torch.no_grad():
+        out = ops.flash_attention(*leaves)
+    assert out.grad_fn is None
+    out = ops.flash_attention(*leaves)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    assert fa.BWD_LAUNCHES == bwd
+
+
+def test_cuda_attention_refuses_grad_through_rows_with_no_key(card):
+    """Sq >= Skv + window leaves the last rows with no key: their output is
+    the mean of V, whose gradient the backward kernel does not give, so the
+    call is refused under grad; without grad it runs."""
+    q = torch.randn(1, 12, 4, 64, generator=card, device="cuda")
+    k = torch.randn(1, 8, 2, 64, generator=card, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, k)]
+    with pytest.raises(ValueError, match="no key"):
+        ops.flash_attention(*leaves, causal=True, window=4)
+    ops.flash_attention(*leaves, causal=True, window=5)   # Sq < Skv + 5
+    with torch.no_grad():
+        ops.flash_attention(*leaves, causal=True, window=4)
+
+
+@pytest.mark.parametrize("op", ["mlstm_chunk", "ssm_scan",
+                                "decode_attention"])
+def test_cuda_kernels_without_backward_raise_under_grad(card, op):
+    q, k, v = (torch.randn(1, 2, 16, 64, generator=card, device="cuda")
+               .requires_grad_(True) for _ in range(3))
+    gates = [torch.randn(1, 2, 16, generator=card, device="cuda")
+             for _ in range(2)]
+    carry = (torch.zeros(1, 2, 64, 64, device="cuda"),
+             torch.zeros(1, 2, 64, device="cuda"),
+             torch.full((1, 2), -1e30, device="cuda"))
+    da = torch.rand(1, 8, 16, 4, generator=card, device="cuda") \
+        .requires_grad_(True)
+    qd = torch.randn(1, 1, 4, 64, generator=card, device="cuda") \
+        .requires_grad_(True)
+    kd = torch.randn(1, 32, 2, 64, generator=card, device="cuda")
+    call = {"mlstm_chunk": lambda: ops.mlstm_chunk(q, k, v, *gates, *carry),
+            "ssm_scan": lambda: ops.ssm_scan(da, da.detach()),
+            "decode_attention": lambda: ops.decode_attention(qd, kd, kd,
+                                                             32)}[op]
+    with pytest.raises(NotImplementedError, match="Queue A 4b"):
+        call()
+    with torch.no_grad():
+        call()
+
+
+def test_cuda_train_step_runs_the_kernels(card):
+    """Reduced qwen3-0.6b, bf16, remat on, on the card by default: each
+    step launches the forward kernel twice a layer and the backward once,
+    and the loss stays finite."""
+    from repro_torch.models import Transformer
+    from repro_torch.training import (AdamWConfig, DataConfig, init_adamw,
+                                      make_batch, make_train_step)
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    model = Transformer(cfg, seed=0)
+    opt = init_adamw(dict(model.named_parameters()))
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1))
+    fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+    for i in range(2):
+        opt, m = step(opt, make_batch(cfg, DataConfig(64, 2), i))
+        assert torch.isfinite(m["loss"])
+    assert fa.LAUNCHES - fwd == 2 * 2 * cfg.num_layers
+    assert fa.BWD_LAUNCHES - bwd == 2 * cfg.num_layers
 
 
 def _mlstm_chunk(gen, bh, l, hd, dtype, pad=0):

@@ -8,7 +8,10 @@ by a subclass that records what the example's own calls return
 verdicts, peaks).  Up to the live replay, the control plane is numpy in
 both packages and must give equal numbers under the same seeds; the
 twins' live replays serve the reduced models on the CPU (``--reduced
---device cpu``) and must complete every query.
+--device cpu``) and must complete every query.  ``train_small_torch.py``
+trains from the weights the reference example draws (handed in as a
+model), in fp32 on both sides, and must print the reference's losses,
+learning rates and gradient norms.
 """
 import ast
 import importlib.util
@@ -184,3 +187,53 @@ def test_serve_pipeline_twin_serves_the_diamond(monkeypatch, capsys):
     assert all(p["global-memory"] == 0 and p["host-staged"] > 0
                for p in out["auto"]["picks"].values())
     assert "completed 8 |" in ref_out
+
+
+def _train_lines(text):
+    """(step, loss, lr, gnorm) of each printed step line."""
+    return [tuple(float(x) for x in m) for m in re.findall(
+        r"step +(\d+) loss ([\d.]+) lr ([\d.e+-]+) gnorm ([\d.]+)", text)]
+
+
+def test_train_small_twin_matches_reference(monkeypatch, capsys, tmp_path):
+    """Five steps of reduced qwen3-0.6b in fp32 from the same weights (the
+    reference example's ``init_params(PRNGKey(0))``): the same printed
+    losses, learning rates and gradient norms, to the digits printed."""
+    import dataclasses
+
+    import jax
+    import numpy as np
+    import torch
+    from repro.configs import get_config as ref_get_config
+    from repro.models import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import from_jax_params
+
+    def fp32_config(name, reduced=False):
+        return dataclasses.replace(ref_get_config(name, reduced=reduced),
+                                   dtype="float32")
+    ref = _load("train_small")
+    monkeypatch.setattr(ref, "get_config", fp32_config)
+    monkeypatch.setattr(sys, "argv", [
+        "train_small.py", "--steps", "5", "--ckpt-dir", str(tmp_path / "r")])
+    ref.main()
+    ref_lines = _train_lines(capsys.readouterr().out)
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True),
+                              dtype="float32")
+    params = init_params(jax.random.PRNGKey(0), fp32_config("qwen3-0.6b",
+                                                            reduced=True))
+    model = from_jax_params(jax.tree.map(np.asarray, params), cfg,
+                            device="cpu", dtype=torch.float32)
+    history = _load("train_small_torch").main(
+        ["--steps", "5", "--ckpt-dir", str(tmp_path / "p")], model=model)
+    port_lines = _train_lines(capsys.readouterr().out)
+    assert [s for s, *_ in ref_lines] == [s for s, *_ in port_lines] \
+        == [0.0, 4.0]
+    for (_, loss, lr, gnorm), (_, l2, lr2, g2) in zip(ref_lines, port_lines):
+        assert l2 == pytest.approx(loss, abs=2e-4)
+        assert lr2 == lr
+        assert g2 == pytest.approx(gnorm, abs=2e-2)
+    assert len(history) == 5
+    assert history[4]["loss"] == pytest.approx(port_lines[1][1], abs=1e-4)
+    assert (tmp_path / "p" / "step_00000005" / "params.pt").exists()

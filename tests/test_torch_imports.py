@@ -29,7 +29,7 @@ def test_port_files_exist():
     assert "chip_smoke.py" in names
     assert {p.name for p in EXAMPLE_TWINS} == {
         "quickstart_torch.py", "serve_pipeline_torch.py",
-        "artifact_suite_torch.py"}
+        "artifact_suite_torch.py", "train_small_torch.py"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -148,3 +148,45 @@ def test_example_twins_run_with_jax_and_repro_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_training_runs_with_jax_repro_and_msgpack_blocked(tmp_path):
+    """``repro_torch.training``, the train launcher and the train_small twin
+    on the CPU with jax, the JAX package and msgpack (the reference's
+    checkpoint format, absent on the card's host) blocked."""
+    code = (
+        "import sys, importlib.util\n"
+        "for name in ('jax', 'repro', 'msgpack'):\n"
+        "    sys.modules[name] = None\n"
+        "import repro_torch.training\n"
+        "from repro_torch.launch import train\n"
+        f"ck = {str(tmp_path)!r}\n"
+        "hist = train.main(['--steps', '2', '--seq', '8', '--global-batch',\n"
+        "                   '2', '--device', 'cpu', '--ckpt-dir', ck + '/l'])\n"
+        "assert len(hist) == 2\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        "    't', 'examples/train_small_torch.py')\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "hist = mod.main(['--steps', '2', '--seq', '8', '--batch', '2',\n"
+        "                 '--reduced', '--device', 'cpu',\n"
+        "                 '--ckpt-dir', ck + '/s'])\n"
+        "hist += mod.main(['--steps', '3', '--seq', '8', '--batch', '2',\n"
+        "                  '--reduced', '--device', 'cpu', '--resume',\n"
+        "                  '--ckpt-dir', ck + '/s'])\n"
+        "assert len(hist) == 3\n"
+        "assert all(sys.modules[n] is None for n in ('jax', 'repro',\n"
+        "                                              'msgpack'))\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+    assert (tmp_path / "l" / "step_00000002" / "params.pt").exists()
+
+
+def test_train_launcher_refuses_the_production_mesh():
+    from repro_torch.launch import train
+    with pytest.raises(SystemExit):
+        train.main(["--production-mesh", "--device", "cpu"])
