@@ -141,6 +141,27 @@ Phases, each printing one line per case:
      step), and the decode, mLSTM and scan ops raising under grad on the
      card, and attention whose last rows see no key refused under grad
      (``train_guards``);
+ 11. the control plane's anneal on the card (``SAConfig(mode="torch")``,
+     ``core/anneal_torch.py``; torch ops, no kernel of its own): every
+     ``multitenant_suite`` workload solved with mode "torch" on the card
+     and mode "vectorized" at iterations 400, seed 3, then one solve of a
+     synthetic datacenter (``ANNEAL_SCALE``: 192 tenants, ~600 nodes, 48
+     devices) in both modes (``anneal``: objective, feasibility, solve
+     wall time, walk steps, device launches a step and the device's idle
+     share over the walk, from one profiled solve; mode not "torch",
+     feasibility unlike "vectorized"'s or an objective ratio below
+     ANNEAL_MIN_RATIO fails the run), then one ``CamelotSession`` on the
+     suite's img-to-img (qwen3-0.6b -> qwen1.5-0.5b, full width) solved
+     with ``SolverSpec(mode="torch")`` on the card and served, 32 queries
+     at 20 qps on the threads backend, all completed
+     (``session_anneal``);
+ 12. launch, analyses and no timings on the card: ``roofline_terms`` on
+     the H100 spec (``configs.H100``) for every ARCH_IDS × INPUT_SHAPES
+     cell, its dominant term and bound (``roofline``), and
+     ``python -m repro_torch.launch.dryrun`` for qwen3-0.6b's train_4k and
+     decode_32k on the 16×16 mesh of a fake process group, each in a
+     process of its own: memory per device, collective bytes, FLOPs a
+     device, ``fits_hbm`` (``dryrun``);
 then a ``{"kernels": [...]}`` line (``launches``: each kernel's launches
 on its path, counted from 0 just before the path and read just after:
 the served traces for the prefill kernels, those of the ``serve`` phases
@@ -2613,6 +2634,215 @@ def serve_pipelines(fa, ms) -> tuple:
 
 
 # --------------------------------------------------------------------------
+# phase 11: the anneal on the card (SAConfig(mode="torch"))
+# --------------------------------------------------------------------------
+
+# the reference's contract for its jitted walk (tests/test_solver_scale.py:
+# mode "jax" within 2% of "vectorized" on every suite workload)
+ANNEAL_MIN_RATIO = 0.98
+ANNEAL_SA = {"iterations": 400, "seed": 3}
+# the datacenter solve: 192 tenants (598 nodes) on 48 devices, where the
+# vectorized walk takes ~20 s on one host core; the default SA budget
+ANNEAL_SCALE = {"tenants": 192, "devices": 48, "iterations": 2000,
+                "seed": 3}
+
+
+def _anneal_solve(ts, pred, device, n_devices: int, mode: str, sa: dict,
+                  profile: bool = False):
+    """One max-load solve in ``mode`` (its walk on the card for "torch"):
+    (result, wall seconds, the walk's counts, the profiled walk's device
+    kernels and busy ms or None)."""
+    from repro_torch.core import anneal_torch
+    from repro_torch.core.allocator import MultiTenantAllocator, SAConfig
+    alloc = MultiTenantAllocator(ts, pred, device, n_devices,
+                                 sa=SAConfig(mode=mode, device="cuda", **sa))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = alloc.solve_max_load(4)
+    wall = time.perf_counter() - t0
+    walk = dict(anneal_torch.LAST_WALK) if mode == "torch" else None
+    prof = None
+    if profile:
+        box = {}
+
+        def solve():
+            box["res"] = MultiTenantAllocator(
+                ts, pred, device, n_devices,
+                sa=SAConfig(mode=mode, device="cuda", **sa)).solve_max_load(4)
+        _, (busy_ms, kernels) = _profile_once(solve, host_ops=False)
+        launches = sum(n for name, n, _ in kernels
+                       if "Memcpy" not in name and "Memset" not in name)
+        prof = {"launches": launches, "busy_ms": busy_ms,
+                "walk_s": anneal_torch.LAST_WALK["walk_s"],
+                "steps": anneal_torch.LAST_WALK["steps"],
+                "objective": box["res"].objective}
+    return res, wall, walk, prof
+
+
+def _anneal_row(name, out: dict) -> dict:
+    tr, vec = out["torch"], out["vectorized"]
+    ratio = tr["objective"] / vec["objective"] if vec["objective"] else None
+    row = {"workload": name, "torch": tr, "vectorized": vec,
+           "objective_ratio": ratio}
+    if tr["mode"] != "torch":
+        raise AssertionError(f"anneal {name}: mode {tr['mode']!r} ran")
+    if tr["feasible"] != vec["feasible"]:
+        raise AssertionError(f"anneal {name}: feasibility differs {row}")
+    if ratio is not None and ratio < ANNEAL_MIN_RATIO:
+        raise AssertionError(f"anneal {name}: objective ratio {ratio}")
+    return row
+
+
+def anneal_phase() -> dict:
+    """Mode "torch" on the card against mode "vectorized": every suite
+    workload at the reference test's budget, then the datacenter solve,
+    profiled once (launches a step, the walk's idle share)."""
+    from repro_torch.core.predictor import PipelinePredictor
+    from repro_torch.core.types import H100, RTX_2080TI, TenantSet
+    from repro_torch.sim.workloads import (multitenant_suite,
+                                           synthetic_predictor,
+                                           synthetic_tenant_set)
+    t_phase = time.perf_counter()
+    rows = []
+
+    def side(res, wall, walk):
+        return {"mode": res.mode, "feasible": res.feasible,
+                "objective": res.objective, "solve_s": wall,
+                "walk": walk}
+    for name, tenants in multitenant_suite().items():
+        ts = TenantSet(tenants)
+        pred = PipelinePredictor.from_graph(ts.union_graph, RTX_2080TI,
+                                            seed=0)
+        out = {mode: side(*_anneal_solve(ts, pred, RTX_2080TI, 4, mode,
+                                         ANNEAL_SA)[:3])
+               for mode in ("torch", "vectorized")}
+        rows.append(_anneal_row(name, out))
+    sc = ANNEAL_SCALE
+    ts = synthetic_tenant_set(sc["tenants"], H100, seed=0)
+    pred = synthetic_predictor(ts, H100, seed=0)
+    sa = {"iterations": sc["iterations"], "seed": sc["seed"]}
+    res, wall, walk, prof = _anneal_solve(ts, pred, H100, sc["devices"],
+                                          "torch", sa, profile=True)
+    out = {"torch": side(res, wall, walk),
+           "vectorized": side(*_anneal_solve(ts, pred, H100, sc["devices"],
+                                             "vectorized", sa)[:3])}
+    row = _anneal_row(f"synthetic-{sc['tenants']}", out)
+    row.update(nodes=ts.n_nodes, devices=sc["devices"],
+               launches_per_step=prof["launches"] / prof["steps"],
+               profiled={**prof, "idle_share": 1.0 - prof["busy_ms"]
+                         / (prof["walk_s"] * 1e3)})
+    rows.append(row)
+    emit({"phase": "anneal", "sa": ANNEAL_SA, "scale": sc, "rows": rows,
+          "seconds": time.perf_counter() - t_phase})
+    return {"rows": rows}
+
+
+def session_anneal_phase() -> dict:
+    """``CamelotSession`` on the suite's img-to-img, solved with
+    ``SolverSpec(mode="torch")`` (the walk on the card), then served on
+    the threads backend at full width: 32 queries at 20 qps, all
+    completed."""
+    from repro_torch.camelot import CamelotSession, ClusterSpec, SolverSpec
+    from repro_torch.core import H100
+    from repro_torch.sim import camelot_suite
+    t_phase = time.perf_counter()
+    sess = CamelotSession(camelot_suite(H100)["img-to-img"],
+                          ClusterSpec(device=H100, devices=1), batch=4)
+    sess.profile()
+    t0 = time.perf_counter()
+    res = sess.solve("max-peak", solver=SolverSpec(
+        mode="torch", iterations=FACADE_SA_ITERATIONS, seed=0))
+    solve_s = time.perf_counter() - t0
+    if res.mode != "torch" or not res.feasible:
+        raise AssertionError(f"session_anneal: mode {res.mode}, feasible "
+                             f"{res.feasible}")
+    on_one_card("session_anneal solve", res.allocation)
+    eng = sess.serve()
+    stats = eng.run_trace(sess.make_trace(32, 20.0, seed=7))
+    s = stats.summary()
+    emit({"phase": "session_anneal", "service": "img-to-img",
+          "solve": {"mode": res.mode, "predicted_peak_qps": res.objective,
+                    "wall_s": solve_s, "stages": alloc_row(res.allocation)},
+          "queries": 32, "qps": 20.0,
+          "measured": {"p99_ms": s["p99"] * 1e3, "mean_ms": s["mean"] * 1e3,
+                       "completed": s["completed"], "failed": s["failed"]},
+          "seconds": time.perf_counter() - t_phase})
+    check_served("session_anneal", s, 32)
+    del eng, sess
+    gc_collect()
+    return s
+
+
+# --------------------------------------------------------------------------
+# phase 12: launch (roofline on the H100 spec, the dry run)
+# --------------------------------------------------------------------------
+
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+
+
+def launch_phase() -> dict:
+    """The roofline of every (arch, shape) cell on the H100 spec, and the
+    dry run of qwen3-0.6b's DRYRUN_SHAPES on the 16×16 mesh of a fake
+    process group, each in a process of its own (the fake group never
+    shares a process with the card's work).  Analyses: nothing here is
+    timed on the card."""
+    import tempfile
+    from repro_torch.configs import ARCH_IDS, H100, INPUT_SHAPES, get_config
+    from repro_torch.launch.roofline import analytic_costs, roofline_terms
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-0.6b", "--shape", shape, "--out", out_dir], cwd=root,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for shape in DRYRUN_SHAPES}
+    cells = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for name, shp in INPUT_SHAPES.items():
+            # the production mesh: 256 chips, inference weights re-read by
+            # each of the 16 data-parallel replica groups; collectives are
+            # the dry run's, here left out (0)
+            a = analytic_costs(cfg, shp, weight_replicas=16
+                               if shp.kind != "train" else 1)
+            t = roofline_terms(a, 0.0, 256, H100)
+            cells.append([arch, name, t["dominant"], t["bound_s"]])
+    emit({"phase": "roofline", "hw": dataclasses.asdict(H100), "chips": 256,
+          "collective_bytes": 0, "cells": cells})
+    records = {}
+    for shape, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        path = Path(out_dir) / f"qwen3-0.6b_{shape}_pod.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        mem = rec.get("memory_per_device", {})
+        coll = rec.get("collectives", {})
+        row = {"phase": "dryrun", "arch": "qwen3-0.6b", "shape": shape,
+               "returncode": proc.returncode, "status": rec.get("status"),
+               "line": stdout.strip().splitlines()[-1:],
+               "mesh": rec.get("mesh"), "chips": rec.get("chips"),
+               "memory_per_device": mem,
+               "collective_bytes": coll.get("total_bytes"),
+               "collective_counts": coll.get("counts"),
+               "flops_per_device": rec.get("cost_analysis_raw", {})
+               .get("flops"),
+               "roofline": rec.get("roofline"),
+               "fits_hbm": rec.get("fits_hbm"),
+               "fits_hbm_resident": rec.get("fits_hbm_resident"),
+               "t_compile_s": rec.get("t_compile_s"),
+               "error": rec.get("error"),
+               "stderr_tail": stderr.splitlines()[-6:]
+               if proc.returncode else []}
+        emit(row)
+        if proc.returncode != 0 or rec.get("status") != "ok" \
+                or rec.get("chips") != 256:
+            raise AssertionError(f"dryrun {shape} failed: {row}")
+        records[shape] = rec
+    emit({"phase": "launch", "seconds": time.perf_counter() - t_phase})
+    return records
+
+
+# --------------------------------------------------------------------------
 # phase 10: training — the attention backward kernel, then train steps
 # --------------------------------------------------------------------------
 
@@ -3103,6 +3333,10 @@ def main() -> int:
         fa, dec, ops, Transformer, get_config, param_bytes)
     launches_decode.update(launches_zoo_decode)
     quickstart_phase()
+    # the control plane's walk on the card, then launch's analyses
+    anneal_phase()
+    session_anneal_phase()
+    launch_phase()
 
     main_row = timing[0]
     attn_serve = first["flash_attention_bhsd"] \

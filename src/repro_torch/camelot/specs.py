@@ -344,8 +344,10 @@ class SolverSpec:
     datacenter-scale solver, serialisable like every other spec.
 
     ``mode`` selects the annealing kernel ("scalar" | "vectorized" |
-    "incremental"; "jax", the reference's jitted kernel, is accepted as
-    data but raises ``NotImplementedError`` when it solves);
+    "incremental" | "torch", the walk as torch ops on ``device``; "jax",
+    the reference's jitted kernel, is accepted as data but raises
+    ``NotImplementedError`` when it solves); ``device`` is mode "torch"'s
+    (the card unless "cpu" is asked for; serialised with that mode only);
     ``pod_size`` switches joint multi-tenant solves to the hierarchical
     pod decomposition (``core.hierarchy``) with that many devices per pod
     — ``None`` keeps the flat joint solve.  ``iterations``/``seed`` feed
@@ -358,6 +360,7 @@ class SolverSpec:
     pod_size: Optional[int] = None        # None => flat joint solve
     repair_rounds: int = 2
     parallel_pods: bool = True
+    device: str = "cuda"
 
     def __post_init__(self):
         from repro_torch.core.allocator import CamelotAllocator
@@ -379,7 +382,7 @@ class SolverSpec:
         from repro_torch.core.allocator import SAConfig
         base = base if base is not None else SAConfig()
         return replace(base, mode=self.mode, iterations=self.iterations,
-                       seed=self.seed)
+                       seed=self.seed, device=self.device)
 
     def pod_config(self):
         """The ``PodConfig`` for hierarchical solves (None when flat)."""
@@ -393,10 +396,13 @@ class SolverSpec:
     # ---- dict round-trip ----------------------------------------------
 
     def to_dict(self) -> dict:
-        return {"mode": self.mode, "iterations": self.iterations,
-                "seed": self.seed, "pod_size": self.pod_size,
-                "repair_rounds": self.repair_rounds,
-                "parallel_pods": self.parallel_pods}
+        d = {"mode": self.mode, "iterations": self.iterations,
+             "seed": self.seed, "pod_size": self.pod_size,
+             "repair_rounds": self.repair_rounds,
+             "parallel_pods": self.parallel_pods}
+        if self.mode == "torch":
+            d["device"] = self.device
+        return d
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "SolverSpec":
@@ -406,7 +412,8 @@ class SolverSpec:
                    pod_size=None if d.get("pod_size") is None
                    else int(d["pod_size"]),
                    repair_rounds=int(d.get("repair_rounds", 2)),
-                   parallel_pods=bool(d.get("parallel_pods", True)))
+                   parallel_pods=bool(d.get("parallel_pods", True)),
+                   device=str(d.get("device", "cuda")))
 
 
 # --------------------------------------------------------------------------

@@ -2,9 +2,13 @@ from repro_torch.configs.base import (
     ARCH_IDS,
     ATTN,
     CROSS,
+    H100,
+    INPUT_SHAPES,
     MAMBA,
     MLSTM,
     SLSTM,
+    HardwareSpec,
+    InputShape,
     ModelConfig,
     MoEConfig,
     active_param_count,
@@ -13,6 +17,7 @@ from repro_torch.configs.base import (
     register,
 )
 
-__all__ = ["ARCH_IDS", "ATTN", "CROSS", "MAMBA", "MLSTM", "ModelConfig",
+__all__ = ["ARCH_IDS", "ATTN", "CROSS", "H100", "HardwareSpec",
+           "INPUT_SHAPES", "InputShape", "MAMBA", "MLSTM", "ModelConfig",
            "MoEConfig", "SLSTM", "active_param_count", "get_config",
            "param_count", "register"]

@@ -122,6 +122,53 @@ class ModelConfig:
 
 
 # --------------------------------------------------------------------------
+# Input shapes (the reference's assigned combos) and the card's spec
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str        # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}
+
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    """One accelerator's rates for the roofline (``launch/roofline.py``):
+    peak dense FLOP/s of the served type, HBM bandwidth and capacity, and
+    the per-direction bandwidth of the chip-to-chip link that carries the
+    mesh's collectives.  The host-link and instance fields keep the
+    paper's figures for the contention model."""
+    name: str
+    peak_flops: float                   # FLOP/s per chip
+    hbm_bandwidth: float                # B/s per chip
+    ici_bandwidth: float                # B/s per chip, one direction
+    hbm_capacity: float                 # bytes per chip
+    host_link_effective: float = 12_160e6
+    host_link_per_stream: float = 3_150e6
+    max_instances_per_device: int = 48  # paper: Volta MPS client limit I
+
+
+# NVIDIA H100 SXM5, from the same data sheet as ``core.types.H100`` (the
+# port's DeviceSpec): 989 TFLOP/s dense bf16 on the tensor cores, 3.35 TB/s
+# of HBM3, 80 GB, and NVLink 4's 900 GB/s both ways = 450 GB/s a direction
+# in the place of the TPU's ICI link; the host link is one direction of
+# PCIe Gen5 x16 (64 GB/s), as ``core.types.H100.host_link_total``.
+H100 = HardwareSpec(name="h100", peak_flops=989e12, hbm_bandwidth=3.35e12,
+                    ici_bandwidth=450e9, hbm_capacity=80e9,
+                    host_link_effective=64e9)
+
+
+# --------------------------------------------------------------------------
 # Registry
 # --------------------------------------------------------------------------
 

@@ -65,9 +65,9 @@ from repro_torch.core.types import (QUOTA_GRID, QUOTA_STEP, Allocation,
 QUOTA_MIN = QUOTA_STEP
 
 ANNEAL_NOT_PORTED = (
-    "SAConfig.mode='jax' (the reference's jitted annealing kernel) is not "
-    "ported: its torch twin is ROADMAP.md Queue A item 5, 'The torch "
-    "anneal'; use mode='vectorized' or 'incremental'")
+    "SAConfig.mode='jax' is the reference's jitted annealing kernel and "
+    "needs JAX; the port's twin is mode='torch' (core.anneal_torch, the "
+    "same walk as torch ops on SAConfig.device)")
 
 
 def _remap_placement(alloc: Allocation, avail: List[int]) -> Allocation:
@@ -106,10 +106,15 @@ class SAConfig:
     # (core.incremental) — identical RNG stream and constraint landscape,
     # candidates are re-scored only at the mutated stages, falls back to
     # dense evaluation on graphs whose path count exceeds the cap;
-    # "jax": the reference's jitted annealing kernel; not ported (its
-    # torch twin is ROADMAP.md Queue A 5), so it raises
-    # NotImplementedError.
+    # "torch": the annealing inner loop as torch ops on ``device``
+    # (core.anneal_torch) with a numpy re-evaluation + polish of the
+    # returned incumbents, falling back to "vectorized" when the instance
+    # does not fit the walk's preconditions; "jax", the reference's jitted
+    # kernel, raises NotImplementedError (the port imports no JAX).
     mode: str = "vectorized"
+    # the device of mode "torch"'s walk: the card unless the caller asks
+    # for the CPU ("cpu"); with no CUDA device the walk raises
+    device: str = "cuda"
     # candidates evaluated per vectorized step (one batched _eval_many)
     population: int = 128
     # independent annealing walkers sharing that candidate budget: each
@@ -448,7 +453,7 @@ class CamelotAllocator:
 
     #: SAConfig.mode values this allocator can run (``res.mode`` records
     #: the mode that actually executed after any fallback)
-    MODES = ("scalar", "vectorized", "incremental", "jax")
+    MODES = ("scalar", "vectorized", "incremental", "torch", "jax")
 
     def _anneal(self, batch: int, n_devices: int, objective: str,
                 required_load: Optional[float] = None,
@@ -459,11 +464,17 @@ class CamelotAllocator:
             if hasattr(self.predictor, "total_predict_time") else 0.0
         if mode == "jax":
             raise NotImplementedError(ANNEAL_NOT_PORTED)
-        if mode != "scalar":
+        res = None
+        if mode == "torch":
+            from repro_torch.core import anneal_torch
+            res = anneal_torch.run_anneal(self, batch, n_devices, objective,
+                                          required_load, warm=warm)
+            # kernel preconditions unmet: dense fallback
+        if res is None and mode != "scalar":
             res = self._anneal_vec(batch, n_devices, objective,
                                    required_load, warm=warm,
                                    incremental=(mode == "incremental"))
-        else:
+        elif res is None:
             # warm starts are a vectorized-population feature (an extra
             # walker); the paper-faithful scalar walk stays untouched
             res = self._anneal_scalar(batch, n_devices, objective,

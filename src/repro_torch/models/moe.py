@@ -18,12 +18,15 @@ learn which experts the router picked.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import (constrain, get_shard_context,
+                                       local_op, sharded)
 
 # parameters kept in float32 whatever the model's dtype
 FP32_PARAMS = frozenset({"router"})
@@ -76,7 +79,40 @@ def dispatch_slots(flat_expert: torch.Tensor, num_experts: int, cap: int
 
 def moe_forward(x: torch.Tensor, p, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out (B, S, d), aux loss scalar)."""
+    """x: (B, S, d) -> (out (B, S, d), aux loss scalar).
+
+    On DTensors (a sharded launch) the dispatch runs LOCALLY per shard of
+    the batch, and of the sequence where the residual stream is
+    sequence-sharded over "model" (the reference's shard_map, through
+    ``local_map``): every shard routes its own tokens through all the
+    experts, whose weights are gathered; the cumsum and scatter of the
+    dispatch have no sharding strategy.  The aux loss is the mean over the
+    shards (the reference's pmean over the data axes)."""
+    if not sharded(x):
+        return _moe_dispatch(x, p["router"], p["w_gate"], p["w_up"],
+                             p["w_down"], cfg=cfg)
+    local_dims = (0, 1) if get_shard_context() else (0,)
+    out, aux = local_op(_moe_dispatch_shard, x, p["router"], p["w_gate"],
+                        p["w_up"], p["w_down"], local_dims=local_dims,
+                        replicate=(1, 2, 3, 4), n_out=2, cfg=cfg)
+    return out, aux.mean()
+
+
+def _moe_dispatch_shard(x, router, w_gate, w_up, w_down, *, cfg):
+    """One shard's dispatch; the aux loss repeated over its (B, S)."""
+    out, aux = _moe_dispatch(x, router, w_gate, w_up, w_down, cfg=cfg,
+                             local=True)
+    return out, aux.expand(x.shape[:2])
+
+
+def _moe_dispatch(x, router, w_gate, w_up, w_down, *, cfg: ModelConfig,
+                  local: bool = False):
+    """The capacity dispatch of x (B, S, d) (``moe_forward``)."""
+    p = {"router": router, "w_gate": w_gate, "w_up": w_up,
+         "w_down": w_down}
+    # the reference's "moe_buf"/"moe_hidden" constraints apply on its
+    # auto-SPMD path only; a shard's dispatch is local
+    c = (lambda t, name: t) if local else constrain
     moe = cfg.moe
     b, s, d = x.shape
     t, k, e = b * s, moe.top_k, moe.num_experts
@@ -94,12 +130,12 @@ def moe_forward(x: torch.Tensor, p, cfg: ModelConfig
     slot = torch.where(keep, pos, 0)
     buf = x.new_zeros(e + 1, cap, d)
     buf[scatter_e, slot] = x2d[tok_idx]
-    buf = buf[:e]
+    buf = c(buf[:e], "moe_buf")
 
     # expert FFN (swiglu), batched over experts
     g = torch.bmm(buf, p["w_gate"])
     u = torch.bmm(buf, p["w_up"])
-    h = F.silu(g.float()).to(x.dtype) * u
+    h = c(F.silu(g.float()).to(x.dtype) * u, "moe_hidden")
     y = torch.bmm(h, p["w_down"])                                # (E, C, d)
 
     # gather back and combine with the gates, scatter-add in x's dtype
@@ -110,12 +146,32 @@ def moe_forward(x: torch.Tensor, p, cfg: ModelConfig
     return out.reshape(b, s, d), aux
 
 
+def _decode_shard(x, router, w_gate, w_up, w_down, *, cfg):
+    return moe_forward_decode(x, {"router": router, "w_gate": w_gate,
+                                  "w_up": w_up, "w_down": w_down}, cfg)
+
+
 def moe_forward_decode(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     """Decode path: x (B, 1, d); no capacity, no drops, exact.
 
     One host sync per call (the experts the router picked); the pairs are
     grouped by expert on the device, and each picked expert's three
-    matrices are then used in place for all the pairs routed to it."""
+    matrices are then used in place for all the pairs routed to it.  On
+    DTensors (a sharded launch) each shard of the batch decodes its own
+    rows over the gathered experts."""
+    if sharded(x):
+        return local_op(_decode_shard, x, p["router"], p["w_gate"],
+                        p["w_up"], p["w_down"], replicate=(1, 2, 3, 4),
+                        cfg=cfg)
+    if x.device.type == "meta":
+        # a shape-only trace (the dry run) cannot read the router's picks:
+        # the capacity dispatch with room for every pair has the same
+        # result and bounds the same products
+        moe = cfg.moe
+        cfg = replace(cfg, moe=replace(
+            moe, capacity_factor=moe.num_experts / moe.top_k))
+        return _moe_dispatch(x, p["router"], p["w_gate"], p["w_up"],
+                             p["w_down"], cfg=cfg, local=True)[0]
     b, s, d = x.shape
     k = cfg.moe.top_k
     x2d = x.reshape(b * s, d)

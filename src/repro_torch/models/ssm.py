@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import causal_conv
+from repro_torch.models.common import causal_conv, constrain, local_op
 
 SSM_CHUNK = 256
 # parameters kept in float32 whatever the model's dtype
@@ -87,14 +87,30 @@ def mamba_mix(x: torch.Tensor, p, cfg: ModelConfig, state: MambaState,
     ceil(S / min(chunk, S)) chunks, each scanned through ``ssm``; the
     padded steps of the last chunk are identity transitions (da = 1,
     dbx = 0)."""
-    b, s, _ = x.shape
     xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xin = constrain(xin, "ssm_inner")
+    z = constrain(z, "ssm_inner")
     xc, new_tail = causal_conv(xin, state.conv, p["conv_w"], p["conv_b"])
     xc = F.silu(xc.float()).to(x.dtype)
+    # the chunked scan runs shard-local (batch) on DTensors: the scan's
+    # plain version and the carried-state fold have no sharding strategy
+    y, h = local_op(_scan_segment, xc, state.h, p["x_proj"], p["dt_proj"],
+                    p["dt_bias"], p["A_log"], replicate=(2, 3, 4, 5),
+                    n_out=2, cfg=cfg, chunk=chunk, ssm=ssm)
+    y = y + xc * p["D"].to(x.dtype)
+    y = y * F.silu(z.float()).to(x.dtype)
+    return y @ p["out_proj"], MambaState(h=h, conv=new_tail)
 
+
+def _scan_segment(xc, h, x_proj, dt_proj, dt_bias, A_log, *,
+                  cfg: ModelConfig, chunk: int, ssm: SSMFn):
+    """The selective scan of xc (B, S, inner) from state h, chunk by
+    chunk: returns y (B, S, inner) in xc's dtype and the last state."""
+    p = {"x_proj": x_proj, "dt_proj": dt_proj, "dt_bias": dt_bias,
+         "A_log": A_log}
+    b, s, _ = xc.shape
     chunk = min(chunk, s)
     nch = -(-s // chunk)
-    h = state.h
     ys = []
     for ci in range(nch):
         xcb = xc[:, ci * chunk:(ci + 1) * chunk]
@@ -104,7 +120,7 @@ def mamba_mix(x: torch.Tensor, p, cfg: ModelConfig, state: MambaState,
         da, dbx, cmat = _ssm_inputs(xcb, p, cfg)
         if n_valid < chunk:
             # out of place (autograd keeps exp's output for its backward)
-            valid = (torch.arange(chunk, device=x.device)
+            valid = (torch.arange(chunk, device=xc.device)
                      < n_valid)[None, :, None, None]
             da = torch.where(valid, da, 1.0)
             dbx = torch.where(valid, dbx, 0.0)
@@ -113,11 +129,8 @@ def mamba_mix(x: torch.Tensor, p, cfg: ModelConfig, state: MambaState,
         hs = hs + torch.cumprod(da, dim=1) * h[:, None]
         y = torch.einsum("blis,bls->bli", hs, cmat)
         h = hs[:, -1].clone()          # not a view that keeps hs alive
-        ys.append(y[:, :n_valid].to(x.dtype))
-    y = torch.cat(ys, dim=1)
-    y = y + xc * p["D"].to(x.dtype)
-    y = y * F.silu(z.float()).to(x.dtype)
-    return y @ p["out_proj"], MambaState(h=h, conv=new_tail)
+        ys.append(y[:, :n_valid].to(xc.dtype))
+    return torch.cat(ys, dim=1), h
 
 
 def mamba_decode(x: torch.Tensor, p, cfg: ModelConfig, state: MambaState

@@ -47,9 +47,10 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (AttentionFn, DecodeAttentionFn,
                                           KVCache)
-from repro_torch.models.common import (cross_entropy_loss, dense_init,
-                                       embed_init, resolve_device, rms_norm,
-                                       swiglu_mlp)
+from repro_torch.models.common import (constrain, cross_entropy_loss,
+                                       dense_init, embed_init, gather_params,
+                                       local_op, resolve_device, rms_norm,
+                                       swiglu_mlp, unshard_dims)
 from repro_torch.models.ssm import MambaState, SSMFn
 from repro_torch.models.xlstm import MLSTMFn, MLSTMState, SLSTMState
 
@@ -258,14 +259,21 @@ class Transformer(nn.Module):
         """Token embeddings; with ``learned_pos_emb`` the sinusoidal table
         at ``positions`` added, as the reference does (no learned
         table)."""
-        h = self.embed[tokens.long()]
+        # on DTensors the lookup runs shard-local over the whole table
+        h = local_op(_lookup, tokens, self._top("embed"), replicate=(1,))
         if self.cfg.learned_pos_emb and positions is not None:
             h = h + sinusoidal_pos(positions, self.cfg.d_model).to(h.dtype)
         return h
 
     def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
-        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return h @ head
+        head = self._top("embed").T if self.cfg.tie_embeddings \
+            else self._top("lm_head")
+        return constrain(h @ head, "logits")
+
+    def _top(self, name: str) -> torch.Tensor:
+        """A top-level parameter, FSDP-gathered in a sharded training
+        launch (``common.gather_params``)."""
+        return gather_params({name: getattr(self, name)})[name]
 
     # ---- forward --------------------------------------------------------
 
@@ -305,7 +313,10 @@ class Transformer(nn.Module):
         Returns (h, the layer's new state, the MoE load-balance loss or
         None)."""
         cfg = self.cfg
-        x = rms_norm(h, p["norm1"], cfg.norm_eps)
+        p = gather_params(p)
+        # sequence parallelism: the sequence is gathered entering attention
+        # and the MLP (a no-op on one device)
+        x = unshard_dims(rms_norm(h, p["norm1"], cfg.norm_eps), (1,))
         decode = mode == "decode"
         if mode == "train":
             b = x.shape[0]
@@ -330,34 +341,42 @@ class Transformer(nn.Module):
         else:
             out, new_cache = (xlstm_mod.slstm_decode if decode
                               else xlstm_mod.slstm_mix)(x, p, cfg, cache)
-        h = h + out
+        # each branch's output joins the residual stream in its layout (a
+        # reduce-scatter under sequence parallelism, as XLA's from the
+        # reference's "residual" constraint; a no-op on one device)
+        h = h + constrain(out, "residual")
         if kind == CROSS:
-            xc = rms_norm(h, p["norm_cross"], cfg.norm_eps)
-            h = h + attn_mod.cross_attn_forward(
+            xc = unshard_dims(rms_norm(h, p["norm_cross"], cfg.norm_eps),
+                              (1,))
+            h = h + constrain(attn_mod.cross_attn_forward(
                 xc, cross_params(p), cfg, cross_kv, mode=mode,
-                attention=attention, decode_attention=decode_attention)
+                attention=attention, decode_attention=decode_attention),
+                "residual")
         aux = None
         if mlp_kind == "dense":
-            x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
-            h = h + swiglu_mlp(x2, p["w_gate"], p["w_up"], p["w_down"])
+            x2 = unshard_dims(rms_norm(h, p["norm2"], cfg.norm_eps), (1,))
+            h = h + constrain(swiglu_mlp(x2, p["w_gate"], p["w_up"],
+                                         p["w_down"]), "residual")
         elif mlp_kind == "moe":
             x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
             if decode:
                 h = h + moe_mod.moe_forward_decode(x2, p, cfg)
             else:
                 out2, aux = moe_mod.moe_forward(x2, p, cfg)
-                h = h + out2
+                h = h + constrain(out2, "residual")
         return h, new_cache, aux
 
     def _enc_layer(self, h: torch.Tensor, p: Mapping[str, torch.Tensor],
                    attention: AttentionFn) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = h.shape
-        x = rms_norm(h, p["norm1"], cfg.norm_eps)
+        p = gather_params(p)
+        x = unshard_dims(rms_norm(h, p["norm1"], cfg.norm_eps), (1,))
         q, k, v = attn_mod.project_qkv(x, p, cfg, None)
-        out = attention(q, k, v, causal=False, window=None)
+        out = attn_mod.segment_attention(attention, q, k, v, causal=False,
+                                         window=None)
         h = h + out.reshape(b, s, -1) @ p["wo"]
-        x2 = rms_norm(h, p["norm2"], cfg.norm_eps)
+        x2 = unshard_dims(rms_norm(h, p["norm2"], cfg.norm_eps), (1,))
         return h + swiglu_mlp(x2, p["w_gate"], p["w_up"], p["w_down"])
 
     def encode(self, frames: torch.Tensor,
@@ -377,7 +396,7 @@ class Transformer(nn.Module):
         h = frames + sinusoidal_pos(positions, cfg.d_model).to(frames.dtype)
         for p in self.enc_layers:
             h = _maybe_remat(remat, self._enc_layer, h, p, attention)
-        return rms_norm(h, self.enc_final_norm, cfg.norm_eps)
+        return rms_norm(h, self._top("enc_final_norm"), cfg.norm_eps)
 
     def serve_prefill(self, tokens: torch.Tensor,
                       cache_len: Optional[int] = None,
@@ -416,9 +435,11 @@ class Transformer(nn.Module):
                                   positions=positions, cache=cache,
                                   cross_kv=ckv, attention=attention,
                                   mlstm=mlstm, ssm=ssm)
+            h = constrain(h, "residual")
             new_caches.append(c)
             cross.append(ckv)
-        h = rms_norm(h[:, -1:], self.final_norm, cfg.norm_eps)
+        h = rms_norm(unshard_dims(h, (1,))[:, -1:], self.final_norm,
+                     cfg.norm_eps)
         logits = self.lm_logits(h)[:, 0]
         return logits, ModelCache(layers=new_caches, pos=s,
                                   cross=cross if enc_out is not None
@@ -454,6 +475,7 @@ class Transformer(nn.Module):
                                   positions=positions, cache=state, pos=pos,
                                   cross_kv=ckv,
                                   decode_attention=decode_attention)
+            h = constrain(h, "residual")
             new_caches.append(c)
         h = rms_norm(h, self.final_norm, self.cfg.norm_eps)
         logits = self.lm_logits(h)[:, 0]
@@ -470,7 +492,7 @@ class Transformer(nn.Module):
                                 positions=positions, cache=None,
                                 cross_kv=ckv, attention=attention,
                                 mlstm=mlstm, ssm=ssm)
-        return h, aux
+        return constrain(h, "residual"), aux
 
     def forward_train(self, tokens: torch.Tensor, labels: torch.Tensor,
                       frames: Optional[torch.Tensor] = None,
@@ -502,7 +524,7 @@ class Transformer(nn.Module):
         positions = torch.arange(s, device=tokens.device)[None]
         enc_out = None if frames is None else self.encode(
             frames.to(self.dtype), attention, remat=remat)
-        h = self.embed_tokens(tokens, positions)
+        h = constrain(self.embed_tokens(tokens, positions), "residual")
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for p, (kind, mlp_kind) in zip(self.layers, self.kinds):
             layer = functools.partial(
@@ -512,8 +534,12 @@ class Transformer(nn.Module):
             h, a = _maybe_remat(remat, layer, h, enc_out)
             if a is not None:
                 aux = aux + a
-        h = rms_norm(h, self.final_norm, cfg.norm_eps)
+        h = unshard_dims(rms_norm(h, self.final_norm, cfg.norm_eps), (1,))
         return cross_entropy_loss(self.lm_logits(h), labels) + aux
+
+
+def _lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
 
 
 def _maybe_remat(remat: bool, fn, *args):

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import causal_conv, rms_norm
+from repro_torch.models.common import (causal_conv, constrain, local_op,
+                                       rms_norm)
 
 MLSTM_CHUNK = 256
 NEG_INF = -1e30
@@ -96,10 +97,28 @@ def mlstm_mix(x: torch.Tensor, p, cfg: ModelConfig, state: MLSTMState,
     b, s, _ = x.shape
     inner, h, hd = _mlstm_dims(cfg)
     x_m, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    x_m = constrain(x_m, "xlstm_inner")
+    z = constrain(z, "xlstm_inner")
     xc, new_tail = causal_conv(x_m, state.conv, p["conv_w"], p["conv_b"])
     xc = F.silu(xc.float()).to(x.dtype)
     q, k, v, i_raw, f_raw = _mlstm_qkv_gates(x_m, xc, p, cfg)
+    # the chunk loop runs shard-local (batch, heads) on DTensors: the
+    # chunk op's plain version has no sharding strategy
+    hseq, c, n, m = local_op(_mlstm_chunks, q, k, v, i_raw, f_raw, state.c,
+                             state.n, state.m, local_dims=(0, 1), n_out=4,
+                             chunk=chunk, mlstm=mlstm)
+    hflat = hseq.transpose(1, 2).reshape(b, s, inner).to(x.dtype)
+    hflat = rms_norm(hflat, p["out_norm"], cfg.norm_eps)
+    hflat = hflat * F.silu(z.float()).to(x.dtype)
+    return hflat @ p["out_proj"], MLSTMState(c=c, n=n, m=m, conv=new_tail)
 
+
+def _mlstm_chunks(q, k, v, i_raw, f_raw, c, n, m, *, chunk: int,
+                  mlstm: MLSTMFn):
+    """q, k, v (B, H, S, hd), gates (B, H, S) through ``mlstm`` chunk by
+    chunk from the carry (c, n, m): returns h (B, H, S, hd) fp32 and the
+    last carry."""
+    b, h, s, _ = q.shape
     chunk = min(chunk, s)
     pad = (-s) % chunk
     if pad:
@@ -115,17 +134,12 @@ def mlstm_mix(x: torch.Tensor, p, cfg: ModelConfig, state: MLSTMState,
         return t.movedim(2, 0).contiguous()
 
     qs, ks, vs, is_, fs = map(chunks, (q, k, v, i_raw, f_raw))
-    c, n, m = state.c, state.n, state.m
     hs = []
     for ci in range(nch):
         hb, (c, n, m) = mlstm(qs[ci], ks[ci], vs[ci], is_[ci], fs[ci],
                               c, n, m)
         hs.append(hb)
-    hseq = torch.cat(hs, dim=2)[:, :, :s]                # (B, H, S, hd)
-    hflat = hseq.transpose(1, 2).reshape(b, s, inner).to(x.dtype)
-    hflat = rms_norm(hflat, p["out_norm"], cfg.norm_eps)
-    hflat = hflat * F.silu(z.float()).to(x.dtype)
-    return hflat @ p["out_proj"], MLSTMState(c=c, n=n, m=m, conv=new_tail)
+    return torch.cat(hs, dim=2)[:, :, :s], c, n, m       # (B, H, S, hd)
 
 
 def mlstm_decode(x: torch.Tensor, p, cfg: ModelConfig, state: MLSTMState
@@ -225,12 +239,24 @@ def _slstm_scan_local(wx: torch.Tensor, state: SLSTMState, r, bias,
     return torch.stack(hs), state
 
 
+def _slstm_scan_bsd(wx, c, n, m, h, r, bias, *, cfg: ModelConfig):
+    """``_slstm_scan_local`` with hs batch-major (B, S, d), then the
+    final state's c, n, m, h."""
+    hs, st = _slstm_scan_local(wx, SLSTMState(c, n, m, h), r, bias, cfg)
+    return (hs.transpose(0, 1), *st)
+
+
 def slstm_mix(x: torch.Tensor, p, cfg: ModelConfig, state: SLSTMState
               ) -> Tuple[torch.Tensor, SLSTMState]:
     """Sequential scan over the segment.  x: (B, S, d)."""
     wx = x @ p["w_in"]                                   # (B, S, 4d)
-    hs, state_f = _slstm_scan_local(wx, state, p["r"], p["b"], cfg)
-    h = hs.transpose(0, 1).to(x.dtype)                   # (B, S, d)
+    # gathered once before the per-timestep scan, which runs shard-local
+    # (batch) on DTensors, as the reference's shard_map
+    wx = constrain(wx, "slstm_seq")
+    hs, *st = local_op(_slstm_scan_bsd, wx, *state, p["r"], p["b"],
+                       replicate=(5, 6), n_out=5, cfg=cfg)
+    state_f = SLSTMState(*st)
+    h = hs.to(x.dtype)                                   # (B, S, d)
     h = rms_norm(h, p["out_norm"], cfg.norm_eps)
     # GEGLU FFN; jax.nn.gelu's default is the tanh approximation
     g = h @ p["ff_gate"]

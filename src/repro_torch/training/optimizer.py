@@ -46,8 +46,8 @@ class AdamWConfig(NamedTuple):
 
 def init_adamw(params: Mapping[str, torch.Tensor]) -> AdamWState:
     """Zero fp32 moments beside each leaf, on its device; step 0."""
-    def zeros():
-        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros():          # laid out as the leaf (a DTensor's placements)
+        return {n: torch.zeros_like(p, dtype=torch.float32)
                 for n, p in params.items()}
     return AdamWState(step=0, mu=zeros(), nu=zeros())
 

@@ -26,6 +26,9 @@ DYNAMIC = re.compile(r"(?:import_module|__import__)\(\s*f?['\"]"
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "src/repro_torch/kernels/ops.py" in names
+    assert {"src/repro_torch/core/anneal_torch.py"} | {
+        f"src/repro_torch/launch/{m}.py" for m in (
+            "roofline", "mesh", "sharding", "dryrun")} <= names
     assert "chip_smoke.py" in names
     assert {p.name for p in EXAMPLE_TWINS} == {
         "quickstart_torch.py", "serve_pipeline_torch.py",
@@ -184,6 +187,44 @@ def test_training_runs_with_jax_repro_and_msgpack_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
     assert (tmp_path / "l" / "step_00000002" / "params.pt").exists()
+
+
+def test_anneal_and_launch_run_with_jax_and_repro_blocked():
+    """``core/anneal_torch.py`` (a mode "torch" solve on the CPU) and every
+    ``launch/`` module, the dry run on a fake group included, with jax and
+    the JAX package blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.core.anneal_torch\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.sharding, repro_torch.launch.train\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.core.allocator import (MultiTenantAllocator,\n"
+        "                                        SAConfig)\n"
+        "from repro_torch.core.predictor import PipelinePredictor\n"
+        "from repro_torch.core.types import RTX_2080TI, TenantSet\n"
+        "from repro_torch.sim.workloads import multitenant_suite\n"
+        "ts = TenantSet(multitenant_suite()['two-chains'])\n"
+        "pred = PipelinePredictor.from_graph(ts.union_graph, RTX_2080TI,\n"
+        "                                    seed=0)\n"
+        "sa = SAConfig(iterations=100, seed=3, mode='torch', device='cpu')\n"
+        "res = MultiTenantAllocator(ts, pred, RTX_2080TI, 4,\n"
+        "                           sa=sa).solve_max_load(4)\n"
+        "assert res.mode == 'torch' and res.feasible\n"
+        "from repro_torch.configs.base import InputShape\n"
+        "rec = dryrun.run_combo('qwen3-0.6b', 'x', mesh_shape=(2, 2),\n"
+        "                       reduced=True,\n"
+        "                       shp=InputShape('x', 16, 4, 'decode'))\n"
+        "assert rec['status'] == 'ok' and rec['chips'] == 4\n"
+        "assert sys.modules['jax'] is None and sys.modules['repro'] is None\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_train_launcher_refuses_the_production_mesh():

@@ -147,9 +147,9 @@ def test_eval_many_equal():
 
 def test_jax_mode_raises_not_implemented():
     a = _allocator(PKGS["port"], "img-to-img", 2, "jax")
-    with pytest.raises(NotImplementedError, match="Queue A"):
+    with pytest.raises(NotImplementedError, match="mode='torch'"):
         a.solve_max_load(8)
-    with pytest.raises(NotImplementedError, match="Queue A"):
+    with pytest.raises(NotImplementedError, match="mode='torch'"):
         a.solve_min_resource(8, 10.0)
 
 
