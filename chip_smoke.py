@@ -129,18 +129,31 @@ Phases, each printing one line per case:
      whisper-medium's decoder self-attention), qwen3-0.6b's at a ragged
      S, qwen1.5-0.5b's, starcoder2-3b's windowed, granite-34b's G 48,
      whisper-medium's encoder and cross shapes, each within BWD_TOL of
-     the largest plain gradient), its times at the
+     the largest plain gradient), the scan backward through ``SSMScanFn``
+     against autograd through the plain scan and the plain backward, bit
+     for bit (``check_ssm_bwd``: B 1 L 1 D 3 ST 5, a ragged D*ST, L 17,
+     Jamba's chunk), the mLSTM backward through ``MLSTMChunkFn`` against
+     both, every gradient within MLSTM_BWD_TOL (``check_mlstm_bwd``: hd
+     8-1024 x L 1-256, fp32 and bf16, first, carried and padded chunks),
+     their times at the
      prefill rows' shapes beside autograd through the plain version, one
-     SDPA backward and the bound (``time_attention_bwd``), then
-     ``forward_train``'s loss and every gradient of qwen3-0.6b at full
-     width, two layers, fp32, through the kernels against the plain
-     attention (``train_grads``), ``make_train_step`` on qwen3-0.6b at
+     SDPA backward and the bound (``time_attention_bwd``; the scan's at
+     Jamba's chunk B 4 and 1, ``time_ssm_bwd``; the mLSTM's at
+     xlstm-1.3b's train chunk, device ms by pass, ``time_mlstm_bwd``),
+     then ``forward_train``'s loss and every gradient at full width, two
+     layers, fp32, through the kernels against the plain op
+     (``train_grads``: qwen3-0.6b's attention, xlstm-1.3b's mLSTM chunk,
+     jamba's scan), ``make_train_step`` on qwen3-0.6b at
      full width and depth, bf16, B 4, S 2048, remat on (a warm-up, 3
      timed steps, one profiled: 56 forward and 28 backward launches a
-     step) and on whisper-medium (B 2, S 448 over 1,500 frames, one
-     step), and the decode, mLSTM and scan ops raising under grad on the
-     card, and attention whose last rows see no key refused under grad
-     (``train_guards``);
+     step), on whisper-medium (B 2, S 448 over 1,500 frames, one
+     step), on xlstm-1.3b at full width and depth (B 4, S 512: 2 timed
+     steps and one profiled, 168 forward and 84 backward mLSTM launches a
+     step) and jamba's first two layers (B 1, S 2048, loss and gradients
+     without the AdamW update, which does not fit: 32 forward and 16
+     backward scan launches), and decode attention raising under grad
+     on the card, and attention whose last rows see no key refused under
+     grad (``train_guards``);
  11. the control plane's anneal on the card (``SAConfig(mode="torch")``,
      ``core/anneal_torch.py``; torch ops, no kernel of its own): every
      ``multitenant_suite`` workload solved with mode "torch" on the card
@@ -170,7 +183,9 @@ phases' traces and the zoo's timed prefills (each also beside it;
 ``launches_processes``: the process phases', counted in the workers),
 the timed decode steps (the zoo's too) for the decode kernel, the timed
 jamba prefill for the scan kernel, the timed qwen3-0.6b train steps for
-the backward kernel; the other paths' counts beside them, and
+the attention backward, the timed xlstm-1.3b steps for the mLSTM
+backward, the timed jamba step for the scan backward; the other paths'
+counts beside them, and
 ``launches_serve`` of the kernels a served trace never launches, counted
 over the served phases and held to 0), the
 ``nvidia-smi`` line again, and as the last line
@@ -1830,9 +1845,37 @@ def device_profile(fn, host_ops: bool = False, expect=None):
                          f"{PROFILE_TRIES} tries")
 
 
+def _device_kernels(prof) -> tuple:
+    """The lead-in kernels recorded and ``device_profile``'s result
+    (without host ops), summed by name straight from the profiler's
+    kineto records: building its per-event objects for ``key_averages``
+    takes minutes on a step of ~10^6 records (xlstm-1.3b's training
+    step), this seconds."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _rewrite_name
+    raw = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        n, ns = raw.get(e.name(), (0, 0))
+        raw[e.name()] = (n + 1, ns + e.duration_ns())
+    agg = {}                 # by the names key_averages gives (demangled)
+    for name, (n, ns) in raw.items():
+        key = _rewrite_name(name, with_wildcard=True)
+        n0, ns0 = agg.get(key, (0, 0))
+        agg[key] = (n0 + n, ns0 + ns)
+    lead_in = sum(n for key, (n, _) in agg.items() if LEAD_IN_KERNEL in key)
+    kernels = sorted(([key, n, ns / 1e6] for key, (n, ns) in agg.items()
+                      if LEAD_IN_KERNEL not in key),
+                     key=lambda r: r[2], reverse=True)
+    return lead_in, (sum(ms for _, _, ms in kernels), kernels)
+
+
 def _profile_once(fn, host_ops: bool):
     """One profile of ``fn`` after the lead-in: the lead-in kernels
-    recorded, then ``device_profile``'s result."""
+    recorded, then ``device_profile``'s result.  The device rows come from
+    the kineto records (``_device_kernels``); ``key_averages`` is built
+    only for the host ops' top rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1841,18 +1884,12 @@ def _profile_once(fn, host_ops: bool):
             torch.cuda._sleep(1)
         fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type != DeviceType.CUDA or not e.is_user_annotation]
-    lead_in = sum(e.count for e in rows if e.device_type == DeviceType.CUDA
-                  and LEAD_IN_KERNEL in e.key)
-    dev = sorted((e for e in rows if e.device_type == DeviceType.CUDA
-                  and LEAD_IN_KERNEL not in e.key),
-                 key=lambda e: e.self_device_time_total, reverse=True)
-    kernels = [[e.key, e.count, e.self_device_time_total / 1e3] for e in dev]
-    device_ms = sum(ms for _, _, ms in kernels)
+    lead_in, (device_ms, kernels) = _device_kernels(prof)
     if not host_ops:
         return lead_in, (device_ms, kernels)
-    top = sorted(rows, key=lambda e: e.self_cpu_time_total, reverse=True)
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type != DeviceType.CUDA),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)
     return lead_in, (device_ms, kernels,
                      [[e.key, e.count, e.self_cpu_time_total / 1e3]
                       for e in top[:6]])
@@ -2036,7 +2073,7 @@ KERNEL_KINDS = (("flash_attention_bhsd", "attn"),
 # ``torch.inference_mode``): counted all the same, in the driver and in the
 # workers, and held to 0
 SERVE_NONE = ("flash_attention_bwd", "decode_attention_packed",
-              "ssm_chunk_scan")
+              "ssm_chunk_scan", "mlstm_chunk_bwd", "ssm_chunk_scan_bwd")
 WORKER_KERNELS = tuple(name for name, _ in KERNEL_KINDS) + SERVE_NONE
 
 
@@ -3017,6 +3054,257 @@ def time_attention_bwd(fa, ops, peaks) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 10: the recurrent backwards (the mLSTM chunk and the selective scan)
+# --------------------------------------------------------------------------
+
+# (B, L, D, ST): the smallest scan, a ragged D*ST (63, not a multiple of 4:
+# the scalar path), L 17 (two unrolled groups and a tail), Jamba's chunk
+SSM_BWD_CASES = [(1, 1, 3, 5), (2, 40, 7, 9), (2, 17, 100, 16),
+                 (4, 256, 8192, 16)]
+# mLSTM backward: each gradient's max |diff| over the largest |plain
+# gradient| of its leaf (di and df over the larger of the two: at L 1 from
+# a zero carry the chunk does not depend on f, and df is 0 in exact
+# arithmetic).  fp32: kernel and plain sum in fp32 in other orders and the
+# gate chain's reverse cumsum adds terms of either sign (~1e-6 relative).
+# bf16: q, k, v are the same rounded values on both sides, the kernel's h
+# comes from the tensor-core forward (split bf16, ~2^-16 relative) and its
+# dq, dk, dv are rounded to bf16 (2^-9).  A lost tile, row block or gate
+# term moves a gradient by O(1) of its largest value.
+MLSTM_BWD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+MLSTM_BWD_HD = (8, 16, 64, 128, 1024)
+MLSTM_BWD_L = (1, 7, 16, 17, 256)
+MLSTM_BWD_STATES = ("first", "carried", "padded")
+# the Function's gradients (m_out is not differentiable, m_in gets none)
+MLSTM_GRADS = ("dq", "dk", "dv", "di", "df", "dc_in", "dn_in")
+
+
+def check_ssm_bwd(sm) -> float:
+    """The scan's backward kernel through ``SSMScanFn`` (one forward and
+    one backward launch) against autograd through ``ssm_chunk_scan_plain``
+    and against ``ssm_chunk_scan_bwd_plain`` on the same inputs: bit for
+    bit.  Returns the largest error."""
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    worst = 0.0
+    for b, l, d, st in SSM_BWD_CASES:
+        da, dbx = ssm_inputs(gen, b, l, d, st)
+        dh = rand(gen, (b, l, d, st), torch.float32)
+        leaves = [t.clone().requires_grad_(True) for t in (da, dbx)]
+        fwd, bwd = sm.LAUNCHES, sm.BWD_LAUNCHES
+        h = sm.SSMScanFn.apply(*leaves)
+        got = torch.autograd.grad(h, leaves, dh)
+        torch.cuda.synchronize()
+        launched = (sm.LAUNCHES - fwd, sm.BWD_LAUNCHES - bwd)
+        ref_leaves = [t.clone().requires_grad_(True) for t in (da, dbx)]
+        ref = torch.autograd.grad(sm.ssm_chunk_scan_plain(*ref_leaves),
+                                  ref_leaves, dh)
+        spec = sm.ssm_chunk_scan_bwd_plain(da, h.detach(), dh)
+        errs = {n: (g - r).abs().max().item()
+                for n, g, r in zip(("dda", "ddbx"), got, ref)}
+        equal = all(torch.equal(g, r) for g, r in zip(got, ref)) and all(
+            torch.equal(g, r) for g, r in zip(got, spec))
+        line = {"phase": "check_ssm_bwd", "b": b, "l": l, "d": d, "st": st,
+                "vector_path": (d * st) % 4 == 0, "max_abs_err": errs,
+                "bit_equal_autograd_and_plain_bwd": equal,
+                "launches_fwd_bwd": launched}
+        emit(line)
+        if not equal or launched != (1, 1):
+            raise AssertionError(f"scan backward off: {line}")
+        worst = max(worst, *errs.values())
+        del da, dbx, dh, leaves, h, got, ref_leaves, ref, spec
+        torch.cuda.empty_cache()
+    return worst
+
+
+def mlstm_bwd_cases() -> list:
+    """(B*H, L, hd, dtype, state): every hd x L in both dtypes, the state
+    kind turning over (a padded chunk needs L > 1); xlstm-1.3b's train
+    chunk at B*H 16 (B 4, H 4)."""
+    cases, turn = [], 0
+    for hd in MLSTM_BWD_HD:
+        for l in MLSTM_BWD_L:
+            for dtype in (torch.float32, torch.bfloat16):
+                state = MLSTM_BWD_STATES[turn % 3]
+                turn += 1
+                if state == "padded" and l == 1:
+                    state = "carried"
+                bh = 16 if hd == 1024 and l == 256 else 4
+                cases.append((bh, l, hd, dtype, state))
+    return cases
+
+
+def _rel_errs(got, ref) -> dict:
+    """Each gradient's max |diff| over the largest |ref| of its leaf (di
+    and df over the larger of the two)."""
+    gate = max(ref[3].abs().max().item(), ref[4].abs().max().item())
+    out = {}
+    for name, g, r in zip(MLSTM_GRADS, got, ref):
+        scale = gate if name in ("di", "df") else r.abs().max().item()
+        diff = (g.float() - r).abs().max().item()
+        out[name] = diff / scale if scale > 0 else (0.0 if diff == 0
+                                                    else math.inf)
+    return out
+
+
+def check_mlstm_bwd(ms) -> tuple:
+    """The mLSTM backward kernel through ``MLSTMChunkFn`` (one forward and
+    one backward launch) against autograd through ``mlstm_chunk_plain`` in
+    fp32 on the same (rounded) inputs, with dm_out = <dc_out, c_out> +
+    <dn_out, n_out> (the cotangent a chain of chunks hands back), and
+    against ``mlstm_chunk_bwd_plain``: every gradient within
+    MLSTM_BWD_TOL (the seven of MLSTM_GRADS; m_out is not differentiable,
+    so ``torch.autograd.grad`` is asked for no m_in).  Returns the worst max abs error and the worst error
+    over the largest plain gradient of its leaf."""
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    worst = worst_rel = 0.0
+    for bh, l, hd, dtype, state in mlstm_bwd_cases():
+        pad = min(5, l - 1) if state == "padded" else 0
+        xs = mlstm_inputs(gen, bh, l, hd, dtype, pad)
+        carry = mlstm_carry(ms, gen, bh, l, hd, dtype, state != "first")
+        dh = rand(gen, (bh, l, hd), torch.float32)
+        dc = rand(gen, (bh, hd, hd), torch.float32)
+        dn = rand(gen, (bh, hd), torch.float32)
+        leaves = [t.clone().requires_grad_(True) for t in (*xs, *carry)]
+        fwd, bwd = ms.LAUNCHES, ms.BWD_LAUNCHES
+        h, c_out, n_out, m_out = ms.MLSTMChunkFn.apply(*leaves)
+        got = torch.autograd.grad((h, c_out, n_out), leaves[:7],
+                                  (dh, dc, dn))
+        torch.cuda.synchronize()
+        launched = (ms.LAUNCHES - fwd, ms.BWD_LAUNCHES - bwd)
+        ref_leaves = [t.detach().float().requires_grad_(True)
+                      for t in (*xs, *carry)]
+        out = ms.mlstm_chunk_plain(*ref_leaves)
+        dm = (dc * out[1]).sum((1, 2)) + (dn * out[2]).sum(-1)
+        ref = torch.autograd.grad(out, ref_leaves, (dh, dc, dn, dm.detach()))
+        spec = ms.mlstm_chunk_bwd_plain(*xs, *carry, out[0].detach(), dh,
+                                        dc, dn)
+        rel = _rel_errs(got, ref)
+        rel_spec = _rel_errs(got, spec)
+        errs = {n: (g.float() - r).abs().max().item()
+                for n, g, r in zip(MLSTM_GRADS, got, ref)}
+        dtypes_ok = all(g.dtype == t.dtype and g.shape == t.shape
+                        for g, t in zip(got, leaves))
+        tol = MLSTM_BWD_TOL[dtype]
+        line = {"phase": "check_mlstm_bwd", "bh": bh, "l": l, "hd": hd,
+                "dtype": str(dtype).split(".")[-1], "state": state,
+                "pad": pad, "err_over_max_grad": rel,
+                "err_over_max_grad_vs_plain_bwd": rel_spec,
+                "max_abs_err": errs, "tol_over_max_grad": tol,
+                "launches_fwd_bwd": launched,
+                "m_out_differentiable": m_out.requires_grad}
+        emit(line)
+        if launched != (1, 1) or not dtypes_ok or m_out.requires_grad \
+                or max(rel.values()) > tol or max(rel_spec.values()) > tol \
+                or not all(math.isfinite(e) for e in errs.values()):
+            raise AssertionError(f"mLSTM backward off: {line}")
+        worst = max(worst, *errs.values())
+        worst_rel = max(worst_rel, *rel.values())
+        del xs, carry, dh, dc, dn, leaves, h, c_out, n_out, m_out, got
+        del ref_leaves, out, ref, spec
+        torch.cuda.empty_cache()
+    return worst, worst_rel
+
+
+def time_ssm_bwd(sm, part: str, peaks) -> list:
+    """The scan backward at Jamba's chunk (L 256, D 8192, ST 16), B 4 and
+    B 1: CUDA-event ms, profiler device ms, autograd through the plain
+    forward, the bound.  No single PyTorch call computes this gradient:
+    library none."""
+    _, mem_rate = peaks
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    rows = []
+    for b in (4, 1):
+        l, d, st = 256, 8192, 16
+        da, dbx = ssm_inputs(gen, b, l, d, st)
+        h = sm.ssm_chunk_scan(da, dbx)
+        dh = rand(gen, (b, l, d, st), torch.float32)
+        t_ms = cuda_ms(lambda: sm.ssm_chunk_scan_bwd(da, h, dh), 20)
+        dev_ms = kernel_device_ms(lambda: sm.ssm_chunk_scan_bwd(da, h, dh),
+                                  (sm.BWD_KERNEL,), 20)[sm.BWD_KERNEL]
+        leaves = [t.clone().requires_grad_(True) for t in (da, dbx)]
+        out = sm.ssm_chunk_scan_plain(*leaves)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, dh, retain_graph=True), 3, 1)
+        del out, leaves
+        # a multiply-add and a multiply per element; da, h, dh read once,
+        # d da and d dbx written once, fp32
+        flops = 3 * da.numel()
+        nbytes = 5 * da.numel() * 4
+        t_ops, t_bytes = flops / FP32_FLOPS[part], nbytes / mem_rate
+        row = {"b": b, "l": l, "d": d, "st": st, "dtype": "float32",
+               "ms": t_ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+               "library_ms": None, "flops": flops, "bytes": nbytes,
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        row["bound_share"] = row["bound_ms"] / t_ms
+        row["bound_share_device"] = row["bound_ms"] / dev_ms
+        emit({"phase": "time_ssm_bwd", **row})
+        rows.append(row)
+        del da, dbx, h, dh
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_mlstm_bwd(ms, part: str, peaks) -> list:
+    """The mLSTM backward at xlstm-1.3b's train chunk (B*H 16 = B 4 x H 4,
+    L 256, hd 1024, a carried state) in bf16 (the bf16 steps' path) and
+    fp32 (the fp32 gradients' path): CUDA-event ms, profiler device ms by
+    pass, autograd through the plain forward, the bound.  No single
+    PyTorch call computes this gradient: library none."""
+    flops_rate, mem_rate = peaks
+    gen = torch.Generator(device="cuda").manual_seed(54)
+    bh, l, hd = 16, 256, 1024
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        xs = mlstm_inputs(gen, bh, l, hd, dtype)
+        carry = mlstm_carry(ms, gen, bh, l, hd, dtype, True)
+        h = ms.mlstm_chunk_step(*xs, *carry)[0]
+        ups = (rand(gen, (bh, l, hd), torch.float32),
+               rand(gen, (bh, hd, hd), torch.float32),
+               rand(gen, (bh, hd), torch.float32))
+
+        def kernel():
+            return ms.mlstm_chunk_bwd(*xs, *carry, h, *ups)
+        t_ms = cuda_ms(kernel, 10, warmup=2)
+        by_pass = kernel_device_ms(kernel, ms.BWD_PASSES, 5)
+        dev_ms = sum(by_pass.values())
+        leaves = [t.detach().float().requires_grad_(True)
+                  for t in (*xs, *carry)]
+        out = ms.mlstm_chunk_plain(*leaves)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(
+            out[:3], leaves, ups, retain_graph=True), 3, 1)
+        del out, leaves
+        # the work these inputs need, 2 ops a multiply-add: the four
+        # L x hd x hd products (C_in r, q r^T, dC_out v, dC_out^T k) and
+        # the five causal L x L x hd ones (q k^T, dh v^T, dS k, dS^T q,
+        # W^T r), beside the bytes: every input read once (q, k, v, the
+        # carry, h, the upstream), every gradient written once.  The
+        # operations at the rate of the inputs' type, as time_mlstm's: bf16
+        # q, k, v at the bf16 tensor-core rate, fp32 at fp32's; this route
+        # runs fp32 FMAs on the CUDA cores, kept as a note
+        pairs = l * (l + 1) // 2
+        flops = 2 * bh * (4 * l * hd * hd + 5 * pairs * hd)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*xs, *carry, h, *ups))
+        nbytes += sum(t.numel() * t.element_size() for t in (*xs, *carry))
+        rate = flops_rate if dtype == torch.bfloat16 else FP32_FLOPS[part]
+        t_ops, t_bytes = flops / rate, nbytes / mem_rate
+        row = {"bh": bh, "l": l, "hd": hd, "dtype": str(dtype).split(".")[-1],
+               "ms": t_ms, "device_ms": dev_ms, "device_ms_by_pass": by_pass,
+               "plain_ms": plain_ms, "library_ms": None, "flops": flops,
+               "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "route_bound_ms_at_fp32_rate":
+                   max(flops / FP32_FLOPS[part], t_bytes) * 1e3}
+        row["bound_share"] = row["bound_ms"] / t_ms
+        row["bound_share_device"] = row["bound_ms"] / dev_ms
+        emit({"phase": "time_mlstm_bwd", **row})
+        rows.append(row)
+        del xs, carry, h, ups
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _finite(x) -> float:
     x = float(x)
     if not math.isfinite(x):
@@ -3024,72 +3312,128 @@ def _finite(x) -> float:
     return x
 
 
-def train_grads_phase(fa, ops, Transformer, get_config) -> dict:
-    """(a) qwen3-0.6b at full width, two layers, fp32, B 2, S 512: one
-    ``forward_train`` and its backward through the kernels and through the
-    plain attention on the same weights; the loss and every leaf's
-    gradient held to the plain run."""
+@dataclasses.dataclass(frozen=True)
+class TrainOp:
+    """One op of the loss with a backward kernel: its ``forward_train``
+    keyword, the kernel and plain versions, the module that counts its
+    forward and backward launches (``LAUNCHES``, ``BWD_LAUNCHES``), and
+    the kernel symbols of each (the profile must record every launch of
+    ``expect``)."""
+    name: str
+    kernel: object
+    plain: object
+    mod: object
+    fwd: tuple
+    bwd: tuple
+    expect: str
+
+
+def train_ops(fa, ms, sm, ops, hd: int) -> dict:
+    return {
+        "attention": TrainOp("attention", ops.flash_attention,
+                             ops.flash_attention_plain, fa, (ATTN_KERNEL,),
+                             fa.BWD_KERNELS,
+                             fa.bwd_passes(hd, torch.bfloat16)[0]),
+        "mlstm": TrainOp("mlstm", ops.mlstm_chunk, ops.mlstm_chunk_plain, ms,
+                         ms.KERNELS, ms.BWD_PASSES, ms.BWD_PASSES[0]),
+        "ssm": TrainOp("ssm", ops.ssm_scan, ops.ssm_scan_plain, sm,
+                       (sm.KERNEL,), (sm.BWD_KERNEL,), sm.BWD_KERNEL)}
+
+
+def train_grads_phase(op: TrainOp, Transformer, cfg, b: int, s: int,
+                      seed: int, expect: tuple) -> dict:
+    """``cfg`` at full width, fp32: one ``forward_train`` and its backward
+    through ``op``'s kernels and through its plain version on the same
+    weights; the loss and every leaf's gradient held to the plain run,
+    and the kernel run's (forward, backward) launches to ``expect``."""
     from repro_torch.training import DataConfig, batch_to, make_batch
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), num_layers=2)
-    model = Transformer(cfg, device="cuda", dtype=torch.float32, seed=41)
-    b = batch_to(make_batch(cfg, DataConfig(seq_len=512, global_batch=2),
-                            0), "cuda")
+    model = Transformer(cfg, device="cuda", dtype=torch.float32, seed=seed)
+    batch = batch_to(make_batch(cfg, DataConfig(seq_len=s, global_batch=b),
+                                0), "cuda")
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     model.requires_grad_(True)
     runs = {}
-    for label, attention in (("kernel", ops.flash_attention),
-                             ("plain", ops.flash_attention_plain)):
-        fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
-        loss = model.forward_train(b["tokens"], b["labels"], remat=True,
-                                   attention=attention)
+    for label, fn in (("kernel", op.kernel), ("plain", op.plain)):
+        fwd, bwd = op.mod.LAUNCHES, op.mod.BWD_LAUNCHES
+        loss = model.forward_train(batch["tokens"], batch["labels"],
+                                   remat=True, **{op.name: fn})
         grads = torch.autograd.grad(loss, params)
         torch.cuda.synchronize()
-        runs[label] = (loss.item(), grads,
-                       (fa.LAUNCHES - fwd, fa.BWD_LAUNCHES - bwd))
+        runs[label] = (loss.item(), grads, (op.mod.LAUNCHES - fwd,
+                                            op.mod.BWD_LAUNCHES - bwd))
+        del loss
     model.requires_grad_(False)
     (lk, gk, launched), (lp, gp, plain_launched) = runs["kernel"], \
         runs["plain"]
     rel = {n: ((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
            for n, a, c in zip(names, gk, gp)}
     worst_leaf = max(rel, key=rel.get)
-    line = {"phase": "train_grads", "model": cfg.name, "layers": 2,
-            "dtype": "float32", "b": 2, "s": 512, "loss_kernel": lk,
+    line = {"phase": "train_grads", "model": cfg.name, "op": op.name,
+            "layers": cfg.num_layers, "dtype": "float32", "b": b, "s": s,
+            "params": sum(p.numel() for p in params), "loss_kernel": lk,
             "loss_plain": lp, "loss_rel_diff": abs(lk - lp) / abs(lp),
             "worst_leaf": worst_leaf, "worst_grad_rel_err": rel[worst_leaf],
             "grad_rel_err": rel, "tol": [TRAIN_LOSS_REL_TOL,
-                                          TRAIN_GRAD_REL_TOL],
+                                         TRAIN_GRAD_REL_TOL],
             "launches_fwd_bwd": launched,
             "launches_fwd_bwd_plain_run": plain_launched}
     emit(line)
     # remat: each layer's forward runs again in the backward
-    if launched != (4, 2) or plain_launched != (0, 0):
-        raise AssertionError(f"train_grads launches {launched} "
-                             f"{plain_launched}")
+    if launched != expect or plain_launched != (0, 0):
+        raise AssertionError(f"train_grads {cfg.name} launches {launched} "
+                             f"{plain_launched}, expected {expect}")
     if not (line["loss_rel_diff"] <= TRAIN_LOSS_REL_TOL
             and rel[worst_leaf] <= TRAIN_GRAD_REL_TOL):
-        raise AssertionError(f"train_grads off: {worst_leaf} "
+        raise AssertionError(f"train_grads {cfg.name} off: {worst_leaf} "
                              f"{rel[worst_leaf]}, loss {lk} vs {lp}")
+    del model, runs, gk, gp, params
+    gc_collect()
     return {"launches_fwd_bwd": launched}
 
 
-def train_steps(fa, model, batches, steps: int, label: str,
-                profile: bool) -> dict:
-    """``make_train_step`` on ``model`` (bf16): one warm-up step, then
-    ``steps`` timed ones (the attention kernels' launches counted from 0
-    just before them), then, with ``profile``, one profiled step.  Each
-    batch is made on the host before its step's clock starts."""
+def grads_only_step(model):
+    """A step without the optimizer: the loss and every gradient through
+    ``forward_train`` (remat), as ``make_train_step`` takes them, and their
+    global norm; the parameters stay as they are."""
+    from repro_torch.training import batch_to
+    from repro_torch.training.optimizer import global_norm
+    params = [p for _, p in model.named_parameters()]
+
+    def step(opt, batch):
+        b = batch_to(batch, model.device)
+        model.requires_grad_(True)
+        try:
+            loss = model.forward_train(b["tokens"], b["labels"], remat=True)
+            grads = torch.autograd.grad(loss, params)
+        finally:
+            model.requires_grad_(False)
+        return opt, {"loss": loss.detach(), "lr": 0.0,
+                     "grad_norm": global_norm(dict(enumerate(grads)))}
+    return step
+
+
+def train_steps(op: TrainOp, model, batches, steps: int, label: str,
+                profile: bool, cut=None, optimizer: bool = True) -> dict:
+    """``make_train_step`` on ``model`` (bf16; without ``optimizer``, the
+    loss and gradients alone): one warm-up step, then ``steps`` timed ones
+    (``op``'s kernels' launches counted from 0 just before them), then,
+    with ``profile``, one profiled step.  Each batch is made on the host
+    before its step's clock starts."""
     from repro_torch.training import (AdamWConfig, init_adamw,
                                       make_train_step)
     cfg = model.cfg
     first = batches(0)
-    opt = init_adamw(dict(model.named_parameters()))
-    step = make_train_step(model, AdamWConfig(lr=1e-4, warmup_steps=2,
-                                              total_steps=100))
+    if optimizer:
+        opt = init_adamw(dict(model.named_parameters()))
+        step = make_train_step(model, AdamWConfig(lr=1e-4, warmup_steps=2,
+                                                  total_steps=100))
+    else:
+        opt, step = None, grads_only_step(model)
     opt, _ = step(opt, first)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    op.mod.LAUNCHES = op.mod.BWD_LAUNCHES = 0
     per_step, walls = [], []
     for i in range(1, steps + 1):
         batch = batches(i)            # made on the host, before the clock
@@ -3100,74 +3444,63 @@ def train_steps(fa, model, batches, steps: int, label: str,
         per_step.append({"loss": _finite(met["loss"]),
                          "grad_norm": _finite(met["grad_norm"]),
                          "lr": _finite(met["lr"])})
-    launches = (fa.LAUNCHES, fa.BWD_LAUNCHES)
+    launches = (op.mod.LAUNCHES, op.mod.BWD_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     b, s = first["tokens"].shape
     wall_ms = sorted(walls)[len(walls) // 2] * 1e3
-    out = {"phase": "train_step", "model": cfg.name,
+    out = {"phase": "train_step", "model": cfg.name, "op": op.name,
            "layers": cfg.num_layers, "dtype": "bfloat16", "b": b, "s": s,
-           "remat": True,
+           "remat": True, "optimizer": optimizer,
            "steps": per_step, "wall_ms": [w * 1e3 for w in walls],
            "wall_ms_median": wall_ms, "tokens_per_s": b * s / wall_ms * 1e3,
            "launches_fwd_bwd": launches,
            "launches_fwd_bwd_per_step": [n / steps for n in launches],
            "peak_memory_gb": peak_gb, "label": label}
+    if cut:
+        out["cut"] = cut
     if profile:
-        bwd_expected = launches[1] // steps
-        first_pass = fa.bwd_passes(cfg.resolved_head_dim, torch.bfloat16)[0]
         batch = batches(steps + 1)
 
         def one():
             nonlocal opt
             opt, _ = step(opt, batch)
         device_ms, kernels = device_profile(
-            one, expect={first_pass: bwd_expected})
-        attn_bwd = sum(t for key, _, t in kernels
-                       if any(n in key for n in fa.BWD_KERNELS))
-        attn_fwd = sum(t for key, _, t in kernels if ATTN_KERNEL in key)
-        out.update(device_ms=device_ms,
-                   device_idle_share=max(0.0, 1 - device_ms / wall_ms),
-                   attention_bwd_device_ms=attn_bwd,
-                   attention_fwd_device_ms=attn_fwd,
-                   device_launches=sum(n for _, n, _ in kernels),
-                   top_device_kernels=kernels[:6])
+            one, expect={op.expect: launches[1] // steps})
+        bwd_ms = sum(t for key, _, t in kernels
+                     if any(n in key for n in op.bwd))
+        fwd_ms = sum(t for key, _, t in kernels
+                     if any(n in key for n in op.fwd))
+        out.update({"device_ms": device_ms,
+                    "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+                    f"{op.name}_bwd_device_ms": bwd_ms,
+                    f"{op.name}_fwd_device_ms": fwd_ms,
+                    f"{op.name}_bwd_share": bwd_ms / device_ms,
+                    "device_launches": sum(n for _, n, _ in kernels),
+                    "top_device_kernels": kernels[:6]})
     emit(out)
     del opt
     return out
 
 
 def guards_phase(ops) -> list:
-    """(d) the kernels without a backward refuse a gradient on the card."""
+    """(e) decode attention, which has no backward, refuses a gradient on
+    the card, and so does attention whose last rows see no key."""
     gen = torch.Generator(device="cuda").manual_seed(43)
     f32 = torch.float32
-    q, k, v = (rand(gen, (1, 2, 16, 64), f32).requires_grad_(True)
-               for _ in range(3))
-    gates = [rand(gen, (1, 2, 16), f32) for _ in range(2)]
-    carry = (torch.zeros(1, 2, 64, 64, device="cuda"),
-             torch.zeros(1, 2, 64, device="cuda"),
-             torch.full((1, 2), -1e30, device="cuda"))
-    da = rand(gen, (1, 8, 16, 4), f32).sigmoid().requires_grad_(True)
-    dbx = rand(gen, (1, 8, 16, 4), f32)
     qd = rand(gen, (1, 1, 4, 64), f32).requires_grad_(True)
     kd, vd = (rand(gen, (1, 32, 2, 64), f32) for _ in range(2))
-    calls = {"mlstm_chunk": lambda: ops.mlstm_chunk(q, k, v, *gates,
-                                                    *carry),
-             "ssm_scan": lambda: ops.ssm_scan(da, dbx),
-             "decode_attention": lambda: ops.decode_attention(qd, kd, vd,
-                                                              32)}
     raised = []
-    for name, call in calls.items():
-        try:
-            call()
-        except NotImplementedError as e:
-            raised.append(name)
-            msg = str(e)
-        else:
-            raise AssertionError(f"{name} returned under grad on the card")
-        if "Queue A 4b" not in msg:
-            raise AssertionError(f"{name}: {msg}")
-        with torch.no_grad():
-            call()                  # without grad the kernel runs
+    try:
+        ops.decode_attention(qd, kd, vd, 32)
+    except NotImplementedError as e:
+        if "no backward kernel" not in str(e):
+            raise
+        raised.append("decode_attention")
+    else:
+        raise AssertionError("decode_attention returned under grad on the "
+                             "card")
+    with torch.no_grad():
+        ops.decode_attention(qd, kd, vd, 32)   # without grad it runs
     # attention whose last rows see no key (Sq >= Skv + window): their
     # output is the mean of V, whose gradient the backward kernel does not
     # give, so a call under grad is refused
@@ -3187,23 +3520,52 @@ def guards_phase(ops) -> list:
     return raised
 
 
-def train_phase(fa, ops, Transformer, get_config) -> dict:
-    """Phase 10's training part: (a) gradients through the kernels held to
-    the plain attention; (b) qwen3-0.6b at full width and depth, bf16, B 4,
-    S 2048, remat: a warm-up and 3 timed steps, then one profiled (the
-    backward kernel's path: its launches are the kernels line's); (c)
-    whisper-medium at full width, B 2, S 448 over 1,500 frames, one timed
-    step and one profiled; (d) the guards."""
-    from repro_torch.training import DataConfig, make_batch
-    grads = train_grads_phase(fa, ops, Transformer, get_config)
-    gc_collect()
+XLSTM = "xlstm-1.3b"
+JAMBA_TRAIN_LAYERS = 2       # a Mamba layer with a dense MLP, one with MoE
 
-    cfg = get_config("qwen3-0.6b")
-    model = Transformer(cfg, device="cuda", dtype=torch.bfloat16, seed=42)
+
+def train_phase(fa, ms, sm, ops, Transformer, get_config) -> dict:
+    """Phase 10's training part: (a) gradients through the kernels held to
+    the plain ops at full width and two layers in fp32: qwen3-0.6b
+    (attention), xlstm-1.3b (two mLSTM layers, B 2, S 512: two chunks a
+    layer) and jamba-v0.1-52b (two Mamba layers, the second with the
+    16-expert MoE, B 1, S 512); (b) qwen3-0.6b at full width and depth,
+    bf16, B 4, S 2048, remat: a warm-up and 3 timed steps, then one
+    profiled (the attention backward's path: its launches are the kernels
+    line's); (c) whisper-medium at full width, B 2, S 448 over 1,500
+    frames, one timed step and one profiled; (d) xlstm-1.3b at full width
+    and depth (42 mLSTM, 6 sLSTM layers), bf16, B 4, S 512: 2 timed steps
+    and one profiled (the mLSTM backward's path), and jamba's two layers
+    in bf16 at B 1, S 2048, the loss and gradients without the AdamW
+    update (which does not fit): one timed step and one profiled (the scan
+    backward's path); (e) the guards."""
+    from repro_torch.configs import MLSTM
+    from repro_torch.models.ssm import SSM_CHUNK
+    from repro_torch.models.xlstm import MLSTM_CHUNK
+    from repro_torch.training import DataConfig, make_batch
+    qcfg = get_config("qwen3-0.6b")
+    xcfg = get_config(XLSTM)
+    jcfg = jamba_config(get_config, JAMBA_TRAIN_LAYERS)
+    top = train_ops(fa, ms, sm, ops, qcfg.resolved_head_dim)
+    attn, mlstm, ssm = top["attention"], top["mlstm"], top["ssm"]
+    # remat: every layer's forward runs again in the backward, so a step
+    # launches each forward kernel twice per layer (and chunk) and each
+    # backward once
+    grads = {
+        "qwen": train_grads_phase(
+            attn, Transformer, dataclasses.replace(qcfg, num_layers=2), 2,
+            512, 41, (4, 2)),
+        XLSTM: train_grads_phase(
+            mlstm, Transformer, dataclasses.replace(xcfg, num_layers=2), 2,
+            512, 45, (2 * 2 * 2, 2 * 2)),
+        JAMBA: train_grads_phase(
+            ssm, Transformer, jcfg, 1, 512, 46, (2 * 2 * 2, 2 * 2))}
+
+    model = Transformer(qcfg, device="cuda", dtype=torch.bfloat16, seed=42)
     dcfg = DataConfig(seq_len=2048, global_batch=4)
-    qwen = train_steps(fa, model, lambda i: make_batch(cfg, dcfg, i), 3,
+    qwen = train_steps(attn, model, lambda i: make_batch(qcfg, dcfg, i), 3,
                        "qwen3-0.6b full depth", profile=True)
-    expect = [2 * cfg.num_layers, cfg.num_layers]      # remat: 56 and 28
+    expect = [2 * qcfg.num_layers, qcfg.num_layers]    # remat: 56 and 28
     if qwen["launches_fwd_bwd_per_step"] != expect:
         raise AssertionError(f"train launches "
                              f"{qwen['launches_fwd_bwd_per_step']} != "
@@ -3214,7 +3576,7 @@ def train_phase(fa, ops, Transformer, get_config) -> dict:
     wcfg = get_config(WHISPER)
     model = Transformer(wcfg, device="cuda", dtype=torch.bfloat16, seed=44)
     wd = DataConfig(seq_len=448, global_batch=2)
-    whisper = train_steps(fa, model, lambda i: make_batch(wcfg, wd, i), 1,
+    whisper = train_steps(attn, model, lambda i: make_batch(wcfg, wd, i), 1,
                           "whisper-medium", profile=True)
     # encoder, self and cross attention per layer, each run twice (remat)
     layers = wcfg.num_encoder_layers + 2 * wcfg.num_layers
@@ -3223,8 +3585,43 @@ def train_phase(fa, ops, Transformer, get_config) -> dict:
                              f"{whisper['launches_fwd_bwd_per_step']}")
     del model
     gc_collect()
+
+    model = Transformer(xcfg, device="cuda", dtype=torch.bfloat16, seed=47)
+    xd = DataConfig(seq_len=512, global_batch=4)
+    xlstm = train_steps(mlstm, model, lambda i: make_batch(xcfg, xd, i), 2,
+                        "xlstm-1.3b full depth", profile=True)
+    n_mlstm = sum(kind == MLSTM for kind in xcfg.block_pattern) \
+        * xcfg.num_layers // len(xcfg.block_pattern)
+    chunks = 512 // MLSTM_CHUNK
+    # 2 * 42 * 2 = 168 forward and 84 backward launches a step
+    if xlstm["launches_fwd_bwd_per_step"] != [2 * n_mlstm * chunks,
+                                              n_mlstm * chunks]:
+        raise AssertionError(f"xlstm train launches "
+                             f"{xlstm['launches_fwd_bwd_per_step']}")
+    del model
+    gc_collect()
+
+    model = Transformer(jcfg, device="cuda", dtype=torch.bfloat16, seed=48)
+    jd = DataConfig(seq_len=2048, global_batch=1)
+    # the AdamW update is cut: its functional state (the old and the new
+    # fp32 moments, 4 x 15 GB for the two layers' 3.7 B parameters) does
+    # not fit beside their bf16 weights and gradients in 80 GB
+    jamba = train_steps(ssm, model, lambda i: make_batch(jcfg, jd, i), 1,
+                        "jamba-v0.1-52b, 2 layers", profile=True,
+                        cut=f"num_layers 32 -> {JAMBA_TRAIN_LAYERS}: the "
+                            f"first Mamba layer (dense MLP) and the second "
+                            f"(16-expert MoE), B 1; loss and gradients "
+                            f"without the AdamW update, whose old and new "
+                            f"fp32 moments (60 GB) do not fit beside them",
+                        optimizer=False)
+    chunks = 2048 // SSM_CHUNK
+    if jamba["launches_fwd_bwd_per_step"] != [2 * 2 * chunks, 2 * chunks]:
+        raise AssertionError(f"jamba train launches "
+                             f"{jamba['launches_fwd_bwd_per_step']}")
+    del model
+    gc_collect()
     return {"grads": grads, "qwen": qwen, "whisper": whisper,
-            "guards": guards_phase(ops)}
+            "xlstm": xlstm, "jamba": jamba, "guards": guards_phase(ops)}
 
 
 def main() -> int:
@@ -3266,13 +3663,18 @@ def main() -> int:
     worst_mlstm = check_mlstm(ms)
     worst_decode, worst_decode_row = check_decode(dec)
     worst_bwd = check_attention_bwd(fa, ops)
+    worst_ssm_bwd = check_ssm_bwd(sm)
+    worst_mlstm_bwd, worst_mlstm_bwd_rel = check_mlstm_bwd(ms)
     timing = time_kernels(fa, ops, peaks)
     timing_mlstm = time_mlstm(ms, peaks)
     timing_decode = time_decode(dec, ops, peaks)
     timing_bwd = time_attention_bwd(fa, ops, peaks)
-    # training: the backward kernel's path (its counts from 0 just before
-    # the timed full-width qwen3-0.6b steps)
-    train = train_phase(fa, ops, Transformer, get_config)
+    timing_ssm_bwd = time_ssm_bwd(sm, part, peaks)
+    timing_mlstm_bwd = time_mlstm_bwd(ms, part, peaks)
+    # training: the backward kernels' paths (each op's counts from 0 just
+    # before its model's timed steps: qwen3-0.6b for attention, xlstm-1.3b
+    # for the mLSTM chunk, jamba's two Mamba layers for the scan)
+    train = train_phase(fa, ms, sm, ops, Transformer, get_config)
 
     # each path resets the counts just before it runs and reads them just
     # after: the full-width prefills, then the served chains (the main
@@ -3284,11 +3686,14 @@ def main() -> int:
     # the kernels a served trace never launches, counted in the driver
     # over every served phase (and in the workers by their exit reports)
     fa.BWD_LAUNCHES = dec.LAUNCHES = sm.LAUNCHES = 0
+    ms.BWD_LAUNCHES = sm.BWD_LAUNCHES = 0
     ((first, camelot_first), (second, camelot_second),
      (third, camelot_third)), facade, processes = serve_pipelines(fa, ms)
     serve_none = {"flash_attention_bwd": fa.BWD_LAUNCHES,
                   "decode_attention_packed": dec.LAUNCHES,
-                  "ssm_chunk_scan": sm.LAUNCHES}
+                  "ssm_chunk_scan": sm.LAUNCHES,
+                  "mlstm_chunk_bwd": ms.BWD_LAUNCHES,
+                  "ssm_chunk_scan_bwd": sm.BWD_LAUNCHES}
     emit({"phase": "serve_none", "launches_driver": serve_none})
     if any(serve_none.values()):
         raise AssertionError(f"served phases launched {serve_none}")
@@ -3351,6 +3756,8 @@ def main() -> int:
     decode_row = timing_decode[0]         # qwen3-0.6b's, B 4, Sc 2080
     ssm_row = timing_ssm[0]               # jamba's chunk at B 4
     bwd_row = timing_bwd[0]               # qwen3-0.6b's, B 4, S 2048
+    mlstm_bwd_row = timing_mlstm_bwd[0]   # xlstm-1.3b's chunk, bf16
+    ssm_bwd_row = timing_ssm_bwd[0]       # jamba's chunk at B 4
     emit({"phase": "profiler", "profiles": len(LEAD_IN_LOST),
           "lead_in": PROFILE_LEAD_IN, "lead_in_lost": LEAD_IN_LOST})
     emit({"kernels": [{
@@ -3464,7 +3871,46 @@ def main() -> int:
         "bound_by": ssm_row["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes this linear "
                         "recurrence",
-        "per_shape": timing_ssm}]})
+        "per_shape": timing_ssm}, {
+        "name": "mlstm_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_chunk_bwd.cu",
+        "replaces": "gradient of src/repro/kernels/mlstm_scan.py:78 (XLA "
+                    "autodiff of src/repro/models/xlstm.py:96 in the "
+                    "reference)",
+        "launches": train["xlstm"]["launches_fwd_bwd"][1],
+        "launches_note": "2 timed make_train_step steps of xlstm-1.3b, "
+                         "full width and depth, B 4, S 512",
+        "launches_train_grads": train["grads"][XLSTM]["launches_fwd_bwd"][1],
+        "launches_serve": serve_none["mlstm_chunk_bwd"],
+        "launches_processes": sum(processes_by["mlstm_chunk_bwd"].values()),
+        "max_abs_err": worst_mlstm_bwd,
+        "max_err_over_max_grad": worst_mlstm_bwd_rel,
+        "tol_over_max_grad": {str(k): v for k, v in MLSTM_BWD_TOL.items()},
+        "ms": mlstm_bwd_row["ms"], "device_ms": mlstm_bwd_row["device_ms"],
+        "plain_ms": mlstm_bwd_row["plain_ms"],
+        "bound_ms": mlstm_bwd_row["bound_ms"],
+        "bound_by": mlstm_bwd_row["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes this gradient",
+        "per_shape": timing_mlstm_bwd}, {
+        "name": "ssm_chunk_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        "replaces": "gradient of src/repro/kernels/ssm_scan.py:39 (XLA "
+                    "autodiff of src/repro/kernels/ref.py:55 in the "
+                    "reference)",
+        "launches": train["jamba"]["launches_fwd_bwd"][1],
+        "launches_note": "1 timed make_train_step step of jamba-v0.1-52b's "
+                         "first two layers, full width, B 1, S 2048",
+        "launches_train_grads": train["grads"][JAMBA]["launches_fwd_bwd"][1],
+        "launches_serve": serve_none["ssm_chunk_scan_bwd"],
+        "launches_processes": sum(
+            processes_by["ssm_chunk_scan_bwd"].values()),
+        "max_abs_err": worst_ssm_bwd,
+        "ms": ssm_bwd_row["ms"], "device_ms": ssm_bwd_row["device_ms"],
+        "plain_ms": ssm_bwd_row["plain_ms"],
+        "bound_ms": ssm_bwd_row["bound_ms"],
+        "bound_by": ssm_bwd_row["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes this gradient",
+        "per_shape": timing_ssm_bwd}]})
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -78,7 +78,7 @@ V100 = DeviceSpec(name="v100", peak_flops=15.7e12, mem_capacity=32e9,
 # other fields keep the paper's figures and are not measured on the card:
 # max_instances is the Volta MPS client limit, host_link_stream the
 # single-stream PCIe 3.0 rate, ipc_latency/ipc_setup the global-memory
-# hand-off costs of §VIII-G (ROADMAP.md Queue A 2 measures them).
+# hand-off costs of §VIII-G (ROADMAP.md Queue D 17 measures them).
 H100 = DeviceSpec(name="h100", peak_flops=989e12, mem_capacity=80e9,
                   mem_bandwidth=3.35e12, host_link_total=64e9)
 

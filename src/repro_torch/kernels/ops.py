@@ -8,15 +8,19 @@ hand-written kernel (``flash_attention_bshd``, ``decode_attention_packed``,
 version (``attention_plain``, ``decode_attention_plain``,
 ``mlstm_chunk_plain``, ``ssm_chunk_scan_plain``).  There is no other
 switch, and a CUDA tensor never reaches a plain version through these
-functions.  On the card only prefill attention is differentiable (its
-backward is a kernel too, ``flash_attention_bwd.cu``): the decode, mLSTM
-and selective-scan kernels have no backward yet, so a CUDA call to them
-under grad with an input that requires it raises ``NotImplementedError``
-rather than return an output that autograd cannot see through (ROADMAP
-Queue A 4b).  On the CPU autograd differentiates the plain versions.
-``flash_attention_plain``, ``decode_attention_plain``,
-``mlstm_chunk_plain`` and ``ssm_scan_plain`` run the plain version on any
-device, for holding the kernel against it.
+functions.  Under grad, with an input that requires it, prefill
+attention, the mLSTM chunk and the selective scan go through their
+``torch.autograd.Function``s (``FlashAttentionFn``, ``MLSTMChunkFn``,
+``SSMScanFn``), whose backwards are kernels too on the card
+(``flash_attention_bwd.cu``, ``mlstm_chunk_bwd.cu``,
+``ssm_scan_bwd.cu``); on the CPU the mLSTM and scan Functions run the
+plain backwards, and autograd differentiates plain attention.  Decode
+attention has no backward: training never decodes, and the reference
+takes no gradient through a decode step, so a CUDA call to it under grad
+raises ``NotImplementedError`` rather than return an output that
+autograd cannot see through.  ``flash_attention_plain``,
+``decode_attention_plain``, ``mlstm_chunk_plain`` and ``ssm_scan_plain``
+run the plain version on any device, for holding the kernel against it.
 """
 from __future__ import annotations
 
@@ -31,13 +35,18 @@ from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention_bshd)
 
 
+def _wants_grad(*inputs) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in inputs)
+
+
 def _no_backward(name: str, *inputs) -> None:
     """Raise when a kernel without a backward is asked for a gradient."""
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in inputs):
+    if _wants_grad(*inputs):
         raise NotImplementedError(
-            f"{name} has no backward kernel on the card yet (ROADMAP Queue A "
-            f"4b): call it under torch.no_grad() or on CPU tensors")
+            f"{name} has no backward kernel: training never decodes and the "
+            f"reference takes no gradient through it; call it under "
+            f"torch.no_grad() or on CPU tensors")
 
 
 def _to_bhsd(x: torch.Tensor) -> torch.Tensor:
@@ -123,15 +132,17 @@ def _bh(fn, q, k, v, i_raw, f_raw, c, n, m):
 def mlstm_chunk(q, k, v, i_raw, f_raw, c, n, m):
     """One chunk of the stabilised chunkwise mLSTM in the model's layout:
     q, k, v (B, H, L, hd); i_raw, f_raw (B, H, L); carry c (B, H, hd, hd),
-    n (B, H, hd), m (B, H).  Returns (h (B, H, L, hd) fp32, (c, n, m))."""
-    if q.device.type == "cuda":
-        _no_backward("the mLSTM chunk", q, k, v, i_raw, f_raw, c, n, m)
-        return _bh(mlstm_scan.mlstm_chunk_step, q, k, v, i_raw, f_raw,
+    n (B, H, hd), m (B, H).  Returns (h (B, H, L, hd) fp32, (c, n, m)).
+    Under grad it runs through ``MLSTMChunkFn`` (on the card its backward
+    is ``mlstm_chunk_bwd.cu``, one launch a call)."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no mLSTM path for device {q.device}")
+    if _wants_grad(q, k, v, i_raw, f_raw, c, n, m):
+        return _bh(mlstm_scan.MLSTMChunkFn.apply, q, k, v, i_raw, f_raw,
                    c, n, m)
-    if q.device.type == "cpu":
-        return _bh(mlstm_scan.mlstm_chunk_plain, q, k, v, i_raw, f_raw,
-                   c, n, m)
-    raise ValueError(f"no mLSTM path for device {q.device}")
+    step = mlstm_scan.mlstm_chunk_step if q.device.type == "cuda" \
+        else mlstm_scan.mlstm_chunk_plain
+    return _bh(step, q, k, v, i_raw, f_raw, c, n, m)
 
 
 def mlstm_chunk_plain(q, k, v, i_raw, f_raw, c, n, m):
@@ -141,13 +152,16 @@ def mlstm_chunk_plain(q, k, v, i_raw, f_raw, c, n, m):
 
 def ssm_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
     """The within-chunk selective scan: da, dbx (B, L, D, ST) fp32 -> all
-    h_t (B, L, D, ST) fp32, h_t = da_t * h_{t-1} + dbx_t from h_0 = 0."""
+    h_t (B, L, D, ST) fp32, h_t = da_t * h_{t-1} + dbx_t from h_0 = 0.
+    Under grad it runs through ``SSMScanFn`` (on the card its backward is
+    ``ssm_scan_bwd.cu``, one launch a call)."""
+    if da.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no ssm scan path for device {da.device}")
+    if _wants_grad(da, dbx):
+        return scan_mod.SSMScanFn.apply(da, dbx)
     if da.device.type == "cuda":
-        _no_backward("the selective scan", da, dbx)
         return scan_mod.ssm_chunk_scan(da, dbx)
-    if da.device.type == "cpu":
-        return scan_mod.ssm_chunk_scan_plain(da, dbx)
-    raise ValueError(f"no ssm scan path for device {da.device}")
+    return scan_mod.ssm_chunk_scan_plain(da, dbx)
 
 
 def ssm_scan_plain(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:

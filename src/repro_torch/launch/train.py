@@ -9,9 +9,9 @@ and installs the model's hooks; on more ranks (a ``torchrun`` world) the
 parameters, moments and batches are DTensors laid out by the rules.
 ``--production-mesh`` needs a world of 256 ranks (16×16) started by the
 caller, and refuses any other.  On the card
-only models whose kernels have backwards train (attention: every dense and
-MoE transformer, whisper); xlstm-1.3b and jamba raise there until Queue A
-4b, and train on the CPU.
+every model trains through the kernels' backwards (attention, the mLSTM
+chunk, the selective scan): xlstm-1.3b, for one, with
+``--arch xlstm-1.3b --full-config``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --steps 50 [--full-config] [--ckpt-dir D] [--device cpu]

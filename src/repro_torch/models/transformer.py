@@ -512,9 +512,8 @@ class Transformer(nn.Module):
         attends to the K/V of the encoder's output.  ``remat``
         rematerialises each layer (and each encoder layer) in the backward
         through ``torch.utils.checkpoint``.  ``attention``, ``mlstm`` and
-        ``ssm`` replace the ops, as in ``serve_prefill`` (on the card only
-        attention has a backward kernel: the other two raise under
-        grad)."""
+        ``ssm`` replace the ops, as in ``serve_prefill`` (on the card each
+        of the three default ops has a backward kernel)."""
         cfg = self.cfg
         if cfg.encoder_decoder != (frames is not None):
             raise ValueError(

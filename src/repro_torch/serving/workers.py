@@ -86,6 +86,8 @@ KERNEL_MODULES = {
     "decode_attention_packed": ("repro_torch.kernels.decode_attention",
                                 "LAUNCHES"),
     "ssm_chunk_scan": ("repro_torch.kernels.ssm_scan", "LAUNCHES"),
+    "mlstm_chunk_bwd": ("repro_torch.kernels.mlstm_scan", "BWD_LAUNCHES"),
+    "ssm_chunk_scan_bwd": ("repro_torch.kernels.ssm_scan", "BWD_LAUNCHES"),
 }
 
 

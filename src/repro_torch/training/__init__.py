@@ -1,8 +1,8 @@
 """Training (the port of ``repro.training``): AdamW, the synthetic data
 pipeline, checkpoints and the train step, on ``Transformer.forward_train``.
-On the card the loss's attention runs forward and backward through the
-hand-written kernels; mLSTM and Mamba models train on the CPU only until
-their kernels have backwards (ROADMAP Queue A 4b)."""
+On the card the loss's attention, mLSTM chunks and selective scans run
+forward and backward through the hand-written kernels, so every model of
+the zoo trains there."""
 from repro_torch.training.checkpoint import (CheckpointManager, load_pytree,
                                              save_pytree)
 from repro_torch.training.data import DataConfig, batch_iterator, make_batch

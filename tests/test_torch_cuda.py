@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions (the
-prefill-attention backward against autograd through the plain version),
-the entry points' default device, training through the kernels, and the
+prefill-attention, mLSTM and scan backwards against autograd through the
+plain versions or their plain backwards), the entry points' default
+device, training through the kernels, and the
 process backend's device arena (CUDA IPC between spawned processes).  Every test here needs a CUDA device and
 ``nvcc`` and skips without them.  The file imports neither jax nor the JAX
 package, so it also runs on a machine that has only PyTorch:
@@ -256,29 +257,154 @@ def test_cuda_attention_refuses_grad_through_rows_with_no_key(card):
         ops.flash_attention(*leaves, causal=True, window=4)
 
 
-@pytest.mark.parametrize("op", ["mlstm_chunk", "ssm_scan",
-                                "decode_attention"])
+@pytest.mark.parametrize("op", ["decode_attention"])
 def test_cuda_kernels_without_backward_raise_under_grad(card, op):
-    q, k, v = (torch.randn(1, 2, 16, 64, generator=card, device="cuda")
-               .requires_grad_(True) for _ in range(3))
-    gates = [torch.randn(1, 2, 16, generator=card, device="cuda")
-             for _ in range(2)]
-    carry = (torch.zeros(1, 2, 64, 64, device="cuda"),
-             torch.zeros(1, 2, 64, device="cuda"),
-             torch.full((1, 2), -1e30, device="cuda"))
-    da = torch.rand(1, 8, 16, 4, generator=card, device="cuda") \
-        .requires_grad_(True)
     qd = torch.randn(1, 1, 4, 64, generator=card, device="cuda") \
         .requires_grad_(True)
     kd = torch.randn(1, 32, 2, 64, generator=card, device="cuda")
-    call = {"mlstm_chunk": lambda: ops.mlstm_chunk(q, k, v, *gates, *carry),
-            "ssm_scan": lambda: ops.ssm_scan(da, da.detach()),
-            "decode_attention": lambda: ops.decode_attention(qd, kd, kd,
+    call = {"decode_attention": lambda: ops.decode_attention(qd, kd, kd,
                                                              32)}[op]
-    with pytest.raises(NotImplementedError, match="Queue A 4b"):
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
         call()
     with torch.no_grad():
         call()
+
+
+def test_cuda_mlstm_and_scan_are_differentiable(card):
+    """``ops.mlstm_chunk`` and ``ops.ssm_scan`` under grad on the card: one
+    forward and one backward launch per call, finite gradients for every
+    input that asks for one."""
+    q, k, v = (torch.randn(1, 2, 16, 64, generator=card, device="cuda")
+               .requires_grad_(True) for _ in range(3))
+    gates = [torch.randn(1, 2, 16, generator=card, device="cuda")
+             .requires_grad_(True) for _ in range(2)]
+    carry = (torch.zeros(1, 2, 64, 64, device="cuda"),
+             torch.zeros(1, 2, 64, device="cuda"),
+             torch.full((1, 2), -1e30, device="cuda"))
+    fwd, bwd = mlstm_scan.LAUNCHES, mlstm_scan.BWD_LAUNCHES
+    h, _ = ops.mlstm_chunk(q, k, v, *gates, *carry)
+    grads = torch.autograd.grad(h.square().sum(), [q, k, v, *gates])
+    torch.cuda.synchronize()
+    assert (mlstm_scan.LAUNCHES - fwd, mlstm_scan.BWD_LAUNCHES - bwd) \
+        == (1, 1)
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
+    da = torch.rand(1, 8, 16, 4, generator=card, device="cuda") \
+        .requires_grad_(True)
+    dbx = torch.randn(1, 8, 16, 4, generator=card, device="cuda") \
+        .requires_grad_(True)
+    fwd, bwd = ssm_scan.LAUNCHES, ssm_scan.BWD_LAUNCHES
+    g_da, g_dbx = torch.autograd.grad(ops.ssm_scan(da, dbx).sum(),
+                                      [da, dbx])
+    torch.cuda.synchronize()
+    assert (ssm_scan.LAUNCHES - fwd, ssm_scan.BWD_LAUNCHES - bwd) == (1, 1)
+    assert torch.isfinite(g_da).all() and torch.isfinite(g_dbx).all()
+
+
+@pytest.mark.parametrize("b,l,d,st", [(1, 1, 3, 5), (2, 40, 7, 9),
+                                      (2, 17, 100, 16), (1, 256, 512, 16)])
+def test_cuda_ssm_backward_matches_plain(card, b, l, d, st):
+    """The scan's backward kernel against autograd through the plain scan
+    and against ``ssm_chunk_scan_bwd_plain``: equal bit for bit (each
+    product and each two-term sum rounded to fp32 on its own)."""
+    da = torch.sigmoid(torch.randn(b, l, d, st, generator=card,
+                                   device="cuda"))
+    dbx = torch.randn(b, l, d, st, generator=card, device="cuda") * 0.1
+    dh = torch.randn(b, l, d, st, generator=card, device="cuda")
+    h = ssm_scan.ssm_chunk_scan(da, dbx)
+    before = ssm_scan.BWD_LAUNCHES
+    got = ssm_scan.ssm_chunk_scan_bwd(da, h, dh)
+    torch.cuda.synchronize()
+    assert ssm_scan.BWD_LAUNCHES == before + 1
+    leaves = [t.clone().requires_grad_(True) for t in (da, dbx)]
+    ref = torch.autograd.grad(ssm_scan.ssm_chunk_scan_plain(*leaves),
+                              leaves, dh)
+    spec = ssm_scan.ssm_chunk_scan_bwd_plain(da, h, dh)
+    for g, r, p in zip(got, ref, spec):
+        assert torch.equal(g, r) and torch.equal(g, p)
+
+
+@pytest.mark.parametrize("bh,l,hd,dtype,state", [
+    (4, 1, 8, torch.float32, "first"),
+    (4, 17, 16, torch.bfloat16, "padded"),
+    (4, 7, 64, torch.float32, "padded"),
+    (4, 16, 128, torch.bfloat16, "carried"),
+    (2, 256, 1024, torch.bfloat16, "carried"),   # xlstm-1.3b's train chunk
+    (2, 256, 1024, torch.float32, "first"),
+])
+def test_cuda_mlstm_backward_matches_plain(card, bh, l, hd, dtype, state):
+    """Every gradient of the mLSTM backward kernel against
+    ``mlstm_chunk_bwd_plain`` on the same (rounded) inputs and the plain
+    forward's h: max |diff| within 1e-3 (fp32) or 2e-2 (bf16: the kernel's
+    h from the tensor-core forward, dq, dk, dv rounded to bf16) of the
+    leaf's largest |plain| entry (di and df over the larger of the two),
+    chip_smoke.py's MLSTM_BWD_TOL."""
+    pad = 5 if state == "padded" else 0
+    xs = _mlstm_chunk(card, bh, l, hd, dtype, pad)
+    if state == "first":
+        carry = (torch.zeros(bh, hd, hd, device="cuda"),
+                 torch.zeros(bh, hd, device="cuda"),
+                 torch.full((bh,), -1e30, device="cuda"))
+    else:
+        carry = (torch.randn(bh, hd, hd, generator=card, device="cuda"),
+                 torch.randn(bh, hd, generator=card, device="cuda"),
+                 torch.randn(bh, generator=card, device="cuda"))
+    ups = (torch.randn(bh, l, hd, generator=card, device="cuda"),
+           torch.randn(bh, hd, hd, generator=card, device="cuda"),
+           torch.randn(bh, hd, generator=card, device="cuda"))
+    h = mlstm_scan.mlstm_chunk_step(*xs, *carry)[0]
+    before = mlstm_scan.BWD_LAUNCHES
+    got = mlstm_scan.mlstm_chunk_bwd(*xs, *carry, h, *ups)
+    torch.cuda.synchronize()
+    assert mlstm_scan.BWD_LAUNCHES == before + 1
+    h_plain = mlstm_scan.mlstm_chunk_plain(*xs, *carry)[0]
+    ref = mlstm_scan.mlstm_chunk_bwd_plain(*xs, *carry, h_plain, *ups)
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    gate = max(ref[3].abs().max().item(), ref[4].abs().max().item())
+    for i, (g, r, x) in enumerate(zip(got, ref, (*xs, *carry))):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        scale = gate if i in (3, 4) else r.abs().max().item()
+        err = (g.float() - r).abs().max().item()
+        assert err <= tol * scale if scale > 0 else err == 0, (i, err, scale)
+
+
+def _train_launches(cfg, mod, steps: int, seq: int, batch: int):
+    """Run ``steps`` of ``make_train_step`` on a reduced bf16 model on the
+    card; the (forward, backward) launches of ``mod``'s kernels."""
+    from repro_torch.models import Transformer
+    from repro_torch.training import (AdamWConfig, DataConfig, init_adamw,
+                                      make_batch, make_train_step)
+    model = Transformer(cfg, seed=0)
+    opt = init_adamw(dict(model.named_parameters()))
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1))
+    fwd, bwd = mod.LAUNCHES, mod.BWD_LAUNCHES
+    for i in range(steps):
+        opt, m = step(opt, make_batch(cfg, DataConfig(seq, batch), i))
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    return mod.LAUNCHES - fwd, mod.BWD_LAUNCHES - bwd
+
+
+def test_cuda_xlstm_train_step_runs_the_mlstm_kernels(card):
+    """Reduced xlstm-1.3b, bf16, remat, S 300 (two chunks of 256): each
+    step launches the mLSTM forward twice per mLSTM layer and chunk and
+    the backward once."""
+    from repro_torch.configs import MLSTM
+    cfg = get_config("xlstm-1.3b", reduced=True)
+    n = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == MLSTM
+            for i in range(cfg.num_layers))
+    fwd, bwd = _train_launches(cfg, mlstm_scan, 2, 300, 2)
+    assert (fwd, bwd) == (2 * 2 * 2 * n, 2 * 2 * n)
+
+
+def test_cuda_jamba_train_step_runs_the_scan_kernels(card):
+    """Reduced jamba-v0.1-52b, bf16, remat, S 300 (two chunks of 256): each
+    step launches the scan twice per Mamba layer and chunk and its
+    backward once."""
+    from repro_torch.configs import MAMBA
+    cfg = get_config("jamba-v0.1-52b", reduced=True)
+    n = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == MAMBA
+            for i in range(cfg.num_layers))
+    fwd, bwd = _train_launches(cfg, ssm_scan, 2, 300, 2)
+    assert (fwd, bwd) == (2 * 2 * 2 * n, 2 * 2 * n)
 
 
 def test_cuda_train_step_runs_the_kernels(card):

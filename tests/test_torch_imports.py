@@ -23,9 +23,22 @@ DYNAMIC = re.compile(r"(?:import_module|__import__)\(\s*f?['\"]"
                      r"(?:jax|repro)\b(?!_)")
 
 
+KERNEL_SOURCES = sorted((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
+                        .glob("*.cu"))
+# the tests that hold the recurrent backwards to the reference (CPU) and
+# the card-only tests (no jax: the card's host has none)
+RECURRENT_BWD_TESTS = ROOT / "tests" / "test_torch_recurrent_bwd.py"
+CUDA_TESTS = ROOT / "tests" / "test_torch_cuda.py"
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "src/repro_torch/kernels/ops.py" in names
+    assert {p.name for p in KERNEL_SOURCES} >= {
+        "flash_attention.cu", "flash_attention_bwd.cu", "mlstm_chunk.cu",
+        "mlstm_chunk_bwd.cu", "decode_attention.cu", "ssm_scan.cu",
+        "ssm_scan_bwd.cu"}
+    assert RECURRENT_BWD_TESTS.exists() and CUDA_TESTS.exists()
     assert {"src/repro_torch/core/anneal_torch.py"} | {
         f"src/repro_torch/launch/{m}.py" for m in (
             "roofline", "mesh", "sharding", "dryrun")} <= names
@@ -41,6 +54,20 @@ def test_no_jax_or_reference_import(path):
     text = path.read_text()
     assert not STATIC.findall(text), STATIC.findall(text)
     assert not DYNAMIC.findall(text), DYNAMIC.findall(text)
+
+
+@pytest.mark.parametrize("path", KERNEL_SOURCES, ids=lambda p: p.name)
+def test_kernel_source_names_the_tpu_kernel_it_ports(path):
+    """Each kernel's note opens by naming the TPU kernel (file and
+    function or line) it replaces, or whose gradient it is."""
+    head = path.read_text().split("#include")[0]
+    assert re.search(r"src/repro/kernels/\w+\.py:", head), path.name
+
+
+def test_cuda_tests_import_no_jax():
+    text = CUDA_TESTS.read_text()
+    assert not STATIC.findall(text), STATIC.findall(text)
+    assert "jax" in RECURRENT_BWD_TESTS.read_text()
 
 
 def test_port_imports_and_serves_with_jax_and_repro_blocked():
@@ -178,6 +205,20 @@ def test_training_runs_with_jax_repro_and_msgpack_blocked(tmp_path):
         "                  '--reduced', '--device', 'cpu', '--resume',\n"
         "                  '--ckpt-dir', ck + '/s'])\n"
         "assert len(hist) == 3\n"
+        "import torch\n"
+        "from repro_torch.kernels import ops\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "q, k, v = (torch.randn(1, 2, 5, 8, generator=g)\n"
+        "           .requires_grad_(True) for _ in range(3))\n"
+        "ig, fg = (torch.randn(1, 2, 5, generator=g) for _ in range(2))\n"
+        "c, n = torch.zeros(1, 2, 8, 8), torch.zeros(1, 2, 8)\n"
+        "m = torch.full((1, 2), -1e30)\n"
+        "h, _ = ops.mlstm_chunk(q, k, v, ig, fg, c, n, m)\n"
+        "gq = torch.autograd.grad(h.sum(), q)[0]\n"
+        "da = torch.rand(1, 5, 3, 4, generator=g).requires_grad_(True)\n"
+        "gd = torch.autograd.grad(ops.ssm_scan(da, da.detach()).sum(),\n"
+        "                         da)[0]\n"
+        "assert torch.isfinite(gq).all() and gd.abs().sum() > 0\n"
         "assert all(sys.modules[n] is None for n in ('jax', 'repro',\n"
         "                                              'msgpack'))\n"
         "print('ok')\n")
