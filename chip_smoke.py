@@ -3075,6 +3075,9 @@ MLSTM_BWD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 MLSTM_BWD_HD = (8, 16, 64, 128, 1024)
 MLSTM_BWD_L = (1, 7, 16, 17, 256)
 MLSTM_BWD_STATES = ("first", "carried", "padded")
+# xlstm-1.3b's train chunk (MLSTM_CHUNK steps of its 1,024-wide heads):
+# the bf16 step's backward route
+MLSTM_TRAIN_L, MLSTM_TRAIN_HD = 256, 1024
 # the Function's gradients (m_out is not differentiable, m_in gets none)
 MLSTM_GRADS = ("dq", "dk", "dv", "di", "df", "dc_in", "dn_in")
 
@@ -3205,6 +3208,39 @@ def check_mlstm_bwd(ms) -> tuple:
     return worst, worst_rel
 
 
+def mlstm_bwd_routes(ms) -> list:
+    """One profiled bf16 backward launch at hd 64, 128 and 1024: the mLSTM
+    backward kernels it ran, each once, are exactly ``bwd_passes`` names
+    (the tensor-core route, none of the CUDA-core passes)."""
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    lines = []
+    for bh, l, hd in ((4, 17, 64), (4, 256, 128), (4, 256, 1024)):
+        dtype = torch.bfloat16
+        xs = mlstm_inputs(gen, bh, l, hd, dtype)
+        carry = mlstm_carry(ms, gen, bh, l, hd, dtype, True)
+        h = ms.mlstm_chunk_step(*xs, *carry)[0]
+        ups = (rand(gen, (bh, l, hd), torch.float32),
+               rand(gen, (bh, hd, hd), torch.float32),
+               rand(gen, (bh, hd), torch.float32))
+        want = ms.bwd_passes(l, hd, dtype)
+        _, kernels = device_profile(
+            lambda: ms.mlstm_chunk_bwd(*xs, *carry, h, *ups),
+            expect=dict.fromkeys(want, 1))
+        ran = {}
+        for key, cnt, _ in kernels:
+            for name in ms.BWD_PASSES:
+                if name in key:
+                    ran[name] = ran.get(name, 0) + cnt
+        line = {"phase": "mlstm_bwd_route", "bh": bh, "l": l, "hd": hd,
+                "dtype": "bfloat16", "ran": ran, "bwd_passes": list(want)}
+        emit(line)
+        if ran != dict.fromkeys(want, 1):
+            raise AssertionError(f"mLSTM backward route off: {line}")
+        lines.append(line)
+        del xs, carry, h, ups
+    return lines
+
+
 def time_ssm_bwd(sm, part: str, peaks) -> list:
     """The scan backward at Jamba's chunk (L 256, D 8192, ST 16), B 4 and
     B 1: CUDA-event ms, profiler device ms, autograd through the plain
@@ -3266,7 +3302,7 @@ def time_mlstm_bwd(ms, part: str, peaks) -> list:
         def kernel():
             return ms.mlstm_chunk_bwd(*xs, *carry, h, *ups)
         t_ms = cuda_ms(kernel, 10, warmup=2)
-        by_pass = kernel_device_ms(kernel, ms.BWD_PASSES, 5)
+        by_pass = kernel_device_ms(kernel, ms.bwd_passes(l, hd, dtype), 5)
         dev_ms = sum(by_pass.values())
         leaves = [t.detach().float().requires_grad_(True)
                   for t in (*xs, *carry)]
@@ -3280,8 +3316,8 @@ def time_mlstm_bwd(ms, part: str, peaks) -> list:
         # W^T r), beside the bytes: every input read once (q, k, v, the
         # carry, h, the upstream), every gradient written once.  The
         # operations at the rate of the inputs' type, as time_mlstm's: bf16
-        # q, k, v at the bf16 tensor-core rate, fp32 at fp32's; this route
-        # runs fp32 FMAs on the CUDA cores, kept as a note
+        # q, k, v at the bf16 tensor-core rate (their route's), fp32 at
+        # fp32's (the CUDA-core route's)
         pairs = l * (l + 1) // 2
         flops = 2 * bh * (4 * l * hd * hd + 5 * pairs * hd)
         nbytes = sum(t.numel() * t.element_size()
@@ -3290,12 +3326,12 @@ def time_mlstm_bwd(ms, part: str, peaks) -> list:
         rate = flops_rate if dtype == torch.bfloat16 else FP32_FLOPS[part]
         t_ops, t_bytes = flops / rate, nbytes / mem_rate
         row = {"bh": bh, "l": l, "hd": hd, "dtype": str(dtype).split(".")[-1],
+               "route": "tensor cores" if ms.bwd_passes(l, hd, dtype)
+               == ms.BWD_TC else "CUDA cores",
                "ms": t_ms, "device_ms": dev_ms, "device_ms_by_pass": by_pass,
                "plain_ms": plain_ms, "library_ms": None, "flops": flops,
                "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "route_bound_ms_at_fp32_rate":
-                   max(flops / FP32_FLOPS[part], t_bytes) * 1e3}
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         row["bound_share"] = row["bound_ms"] / t_ms
         row["bound_share_device"] = row["bound_ms"] / dev_ms
         emit({"phase": "time_mlstm_bwd", **row})
@@ -3335,7 +3371,9 @@ def train_ops(fa, ms, sm, ops, hd: int) -> dict:
                              fa.BWD_KERNELS,
                              fa.bwd_passes(hd, torch.bfloat16)[0]),
         "mlstm": TrainOp("mlstm", ops.mlstm_chunk, ops.mlstm_chunk_plain, ms,
-                         ms.KERNELS, ms.BWD_PASSES, ms.BWD_PASSES[0]),
+                         ms.KERNELS, ms.BWD_PASSES,
+                         ms.bwd_passes(MLSTM_TRAIN_L, MLSTM_TRAIN_HD,
+                                       torch.bfloat16)[0]),
         "ssm": TrainOp("ssm", ops.ssm_scan, ops.ssm_scan_plain, sm,
                        (sm.KERNEL,), (sm.BWD_KERNEL,), sm.BWD_KERNEL)}
 
@@ -3665,6 +3703,7 @@ def main() -> int:
     worst_bwd = check_attention_bwd(fa, ops)
     worst_ssm_bwd = check_ssm_bwd(sm)
     worst_mlstm_bwd, worst_mlstm_bwd_rel = check_mlstm_bwd(ms)
+    mlstm_bwd_route = mlstm_bwd_routes(ms)
     timing = time_kernels(fa, ops, peaks)
     timing_mlstm = time_mlstm(ms, peaks)
     timing_decode = time_decode(dec, ops, peaks)
@@ -3883,6 +3922,10 @@ def main() -> int:
         "launches_train_grads": train["grads"][XLSTM]["launches_fwd_bwd"][1],
         "launches_serve": serve_none["mlstm_chunk_bwd"],
         "launches_processes": sum(processes_by["mlstm_chunk_bwd"].values()),
+        "routes": {"tensor cores (bf16 q, k, v, hd a multiple of 64)":
+                   list(ms.BWD_TC),
+                   "CUDA cores (fp32; hd 8, 16)": list(ms.BWD_CC)},
+        "route_checks": mlstm_bwd_route,
         "max_abs_err": worst_mlstm_bwd,
         "max_err_over_max_grad": worst_mlstm_bwd_rel,
         "tol_over_max_grad": {str(k): v for k, v in MLSTM_BWD_TOL.items()},

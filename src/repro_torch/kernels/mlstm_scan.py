@@ -17,8 +17,10 @@ kernel is held against on the card.
 
 The gradient.  ``MLSTMChunkFn`` is the chunk step with its backward: on
 CUDA tensors its forward launches ``mlstm_chunk_step`` and its backward
-``mlstm_chunk_bwd`` (``csrc/mlstm_chunk_bwd.cu``, four passes counted as
-one launch in ``BWD_LAUNCHES``; ``BWD_PASSES`` names them), on CPU
+``mlstm_chunk_bwd`` (``csrc/mlstm_chunk_bwd.cu``, counted as one launch in
+``BWD_LAUNCHES``: five passes on the tensor cores for bf16 q, k, v at hd a
+multiple of 64, four on the CUDA cores otherwise; ``bwd_passes`` names
+those of a call), on CPU
 tensors the plain versions of both.  The backward takes (dh, dc_out,
 dn_out) and gives (dq, dk, dv, di, df, dc_in, dn_in).  It holds the
 stabilisers m_in, M_t and m_out constant: h and the carried state
@@ -58,9 +60,16 @@ ONE_PASS = ("mlstm_short_kernel",)
 TWO_PASS_TC = ("mlstm_gates_tc_kernel", "mlstm_state_tc_kernel")
 TWO_PASS = ("mlstm_gates_kernel", "mlstm_state_kernel")
 KERNELS = ONE_PASS + TWO_PASS_TC + TWO_PASS
-# the backward's passes, in launch order (every L and hd)
-BWD_PASSES = ("mlstm_bwd_rows_kernel", "mlstm_bwd_state_kernel",
-              "mlstm_bwd_dv_kernel", "mlstm_bwd_gates_kernel")
+# the backward's passes, in launch order: bf16 q, k, v at hd a multiple of
+# 64 on the tensor cores (``BWD_TC``), fp32 and hd 8, 16 on the CUDA cores
+# (``BWD_CC``); ``bwd_passes`` names those of one launch, ``BWD_PASSES``
+# every kernel of both routes
+BWD_TC = ("mlstm_bwd_rows_tc_kernel", "mlstm_bwd_state_tc_kernel",
+          "mlstm_bwd_dv_tc_kernel", "mlstm_bwd_dcin_tc_kernel",
+          "mlstm_bwd_gates_kernel")
+BWD_CC = ("mlstm_bwd_rows_kernel", "mlstm_bwd_state_kernel",
+          "mlstm_bwd_dv_kernel", "mlstm_bwd_gates_kernel")
+BWD_PASSES = BWD_TC + BWD_CC[:3]
 BWD_ROWS = 32                 # rows t of the L x L part per rows-pass block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_Y = 65535            # B*H rides the grid's y axis
@@ -91,7 +100,7 @@ def _bwd_entry():
     global _bwd_fn
     if _bwd_fn is None:
         fn = _build.load().repro_mlstm_chunk_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 27 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _bwd_fn = fn
@@ -124,6 +133,39 @@ def passes(l: int, hd: int, dtype: torch.dtype) -> tuple:
     if hd % 64 == 0 and dtype == torch.bfloat16:
         return TWO_PASS_TC
     return TWO_PASS
+
+
+def bwd_passes(l: int, hd: int, dtype: torch.dtype) -> tuple:
+    """The kernels one ``mlstm_chunk_bwd`` call launches, in order, as the
+    C entry chooses them: on dtype and hd alone (every L from 1 to
+    ``MAX_CHUNK``), the tensor cores for bf16 q, k, v at hd a multiple of
+    64, else the CUDA cores."""
+    del l                     # every chunk length takes the same route
+    if dtype == torch.bfloat16 and hd % 64 == 0:
+        return BWD_TC
+    return BWD_CC
+
+
+def bwd_scratch_shapes(bh: int, l: int, hd: int, dtype: torch.dtype) -> dict:
+    """The scratch one backward launch allocates, by the C entry's names,
+    as (shape, dtype), None where the route takes none: the rows pass's
+    per-t scalars (den, inter, inter dqn, the floor's db, w_j) and w_in,
+    its column sums of dW o W per block of ``BWD_ROWS`` rows, the state
+    pass's sums per column tile (dw_j w_j, then dw_in); the CUDA-core
+    route's dS and W (L x L fp32), or the tensor-core route's bf16 hi/lo
+    planes with rows padded to lp = L rounded up to 16: ``sw`` dS and W
+    (lp x lp each), ``rr`` r = dh / den and ri = inter r (lp x hd each)."""
+    f32, b16 = torch.float32, torch.bfloat16
+    tc = bwd_passes(l, hd, dtype) == BWD_TC
+    lp = -(-l // 16) * 16
+    tiles = hd // (64 if tc else min(hd, 32))
+    return {"dS": None if tc else ((bh, l, l), f32),
+            "Wm": None if tc else ((bh, l, l), f32),
+            "rows": ((bh, 5, l), f32), "w_in": ((bh,), f32),
+            "colpart": ((bh, -(-l // BWD_ROWS), l), f32),
+            "epart": ((bh, tiles, l + 1), f32),
+            "sw": ((bh, 4, lp, lp), b16) if tc else None,
+            "rr": ((bh, 4, lp, hd), b16) if tc else None}
 
 
 def _check_cuda(name: str, plain: str, tensors) -> None:
@@ -310,25 +352,24 @@ def mlstm_chunk_bwd(q, k, v, i_raw, f_raw, c_in, n_in, m_in, h, dh, dc_out,
         if t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(shape)}")
+    if any(t.data_ptr() % 16 for t in (h, dh, dc_out)):
+        raise ValueError("h, dh and dc_out must be 16-byte aligned (the "
+                         "kernel reads them in 16-byte pieces)")
     f32 = dict(dtype=torch.float32, device=q.device)
     grads = [torch.empty(bh, l, hd, **f32) for _ in range(3)] + [
         torch.empty(bh, l, **f32), torch.empty(bh, l, **f32),
         torch.empty(bh, hd, hd, **f32), torch.empty(bh, hd, **f32)]
-    # scratch between the passes: dS and W (L x L), the rows pass's per-t
-    # scalars (den, inter, inter dqn, the floor's db, w_j) and w_in, its
-    # column sums of dW o W per block of BWD_ROWS rows, and the state
-    # pass's per-tile sums (dw_j w_j; then dw_in, one float)
-    n_rows = -(-l // BWD_ROWS)
-    n_tiles = hd // min(hd, 32)
-    scratch = [torch.empty(bh, l, l, **f32), torch.empty(bh, l, l, **f32),
-               torch.empty(bh, 5, l, **f32), torch.empty(bh, **f32),
-               torch.empty(bh, n_rows, l, **f32),
-               torch.empty(bh, n_tiles, l + 1, **f32)]
+    # scratch between the passes; the caching allocator reuses it only
+    # after this stream's later work
+    scratch = [None if spec is None
+               else torch.empty(spec[0], dtype=spec[1], device=q.device)
+               for spec in bwd_scratch_shapes(bh, l, hd, q.dtype).values()]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_entry()(*(t.data_ptr() for t in tensors),
                            *(t.data_ptr() for t in grads),
-                           *(t.data_ptr() for t in scratch),
+                           *(None if t is None else t.data_ptr()
+                             for t in scratch),
                            bh, l, hd, _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"mLSTM chunk backward launch failed: CUDA error "

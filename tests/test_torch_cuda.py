@@ -330,6 +330,10 @@ def test_cuda_ssm_backward_matches_plain(card, b, l, d, st):
     (4, 16, 128, torch.bfloat16, "carried"),
     (2, 256, 1024, torch.bfloat16, "carried"),   # xlstm-1.3b's train chunk
     (2, 256, 1024, torch.float32, "first"),
+    # the tensor-core route at its edges: one step padded to 16 from the
+    # first state, and a two-block chunk with padded steps
+    (4, 1, 64, torch.bfloat16, "first"),
+    (2, 17, 1024, torch.bfloat16, "padded"),
 ])
 def test_cuda_mlstm_backward_matches_plain(card, bh, l, hd, dtype, state):
     """Every gradient of the mLSTM backward kernel against
@@ -365,6 +369,36 @@ def test_cuda_mlstm_backward_matches_plain(card, bh, l, hd, dtype, state):
         scale = gate if i in (3, 4) else r.abs().max().item()
         err = (g.float() - r).abs().max().item()
         assert err <= tol * scale if scale > 0 else err == 0, (i, err, scale)
+
+
+def test_cuda_mlstm_backward_runs_its_route(card):
+    """One bf16 backward launch at hd 1024 runs, each once, exactly the
+    kernels ``bwd_passes`` names (the tensor-core route), in that order."""
+    from torch.autograd import DeviceType
+    bh, l, hd = 2, 256, 1024
+    xs = _mlstm_chunk(card, bh, l, hd, torch.bfloat16, 0)
+    carry = (torch.randn(bh, hd, hd, generator=card, device="cuda"),
+             torch.randn(bh, hd, generator=card, device="cuda"),
+             torch.randn(bh, generator=card, device="cuda"))
+    ups = (torch.randn(bh, l, hd, generator=card, device="cuda"),
+           torch.randn(bh, hd, hd, generator=card, device="cuda"),
+           torch.randn(bh, hd, generator=card, device="cuda"))
+    h = mlstm_scan.mlstm_chunk_step(*xs, *carry)[0]
+    mlstm_scan.mlstm_chunk_bwd(*xs, *carry, h, *ups)     # built, warm
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        mlstm_scan.mlstm_chunk_bwd(*xs, *carry, h, *ups)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA
+                     and "mlstm_bwd_" in e.name()),
+                    key=lambda e: e.start_ns())
+    ran = [next(n for n in mlstm_scan.BWD_PASSES if n in e.name())
+           for e in events]
+    assert ran == list(mlstm_scan.bwd_passes(l, hd, torch.bfloat16))
+    assert ran == list(mlstm_scan.BWD_TC)
 
 
 def _train_launches(cfg, mod, steps: int, seq: int, batch: int):
