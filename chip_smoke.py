@@ -128,8 +128,11 @@ Phases, each printing one line per case:
      at the train phase's own shapes (qwen3-0.6b B 4, S 2048 and
      whisper-medium's decoder self-attention), qwen3-0.6b's at a ragged
      S, qwen1.5-0.5b's, starcoder2-3b's windowed, granite-34b's G 48,
-     whisper-medium's encoder and cross shapes, each within BWD_TOL of
-     the largest plain gradient), the scan backward through ``SSMScanFn``
+     whisper-medium's encoder and cross shapes, and on the wgmma route
+     hd 128 causal with Sq < Skv, hd 64 with a window < S and
+     granite-34b's G 48 at B 1, S 2048, whose query heads the dK/dV pass
+     splits over blocks, each within BWD_TOL of the largest plain
+     gradient), the scan backward through ``SSMScanFn``
      against autograd through the plain scan and the plain backward, bit
      for bit (``check_ssm_bwd``: B 1 L 1 D 3 ST 5, a ragged D*ST, L 17,
      Jamba's chunk), the mLSTM backward through ``MLSTMChunkFn`` against
@@ -2910,6 +2913,12 @@ ATTN_BWD_CASES = [
     # 2 is the narrowest window with a nonzero dq.)
     ("hd 8, window 2", 2, 70, 70, 4, 2, 8, True, 2),
     ("hd 32, Sq < Skv", 2, 33, 77, 4, 2, 32, True, None),
+    # the wgmma route at its edges: causal Sq < Skv (keys no row sees),
+    # a window narrower than S at hd 64, and granite-34b's G 48 at full
+    # length, where the dK/dV pass splits the query heads over blocks
+    ("hd 128, causal Sq < Skv", 2, 300, 520, 16, 8, 128, True, None),
+    ("hd 64, window < S", 2, 700, 700, 16, 16, 64, True, 200),
+    ("granite-34b, G-split, B 1", 1, 2048, 2048, 48, 1, 128, True, None),
 ]
 ATTN_BWD_TIME_SHAPES = [
     s for s in ATTN_TIME_SHAPES if s[0] > 16] + [
@@ -2980,10 +2989,11 @@ def check_attention_bwd(fa, ops) -> float:
 
 def time_attention_bwd(fa, ops, peaks) -> list:
     """The backward kernel's times at the train path's shapes (B 4, bf16):
-    CUDA-event ms of one backward (its three passes), its device ms from
-    the profiler, autograd through the plain version, and one
+    CUDA-event ms of one backward (all its passes), its device ms from
+    the profiler by pass, autograd through the plain version, and one
     ``scaled_dot_product_attention`` backward (cuDNN or whichever kernel
-    PyTorch picks; the port never calls it).  Bound: 2.5x the forward's
+    PyTorch picks; the port never calls it), with the factor of the
+    kernel's device ms over the library's.  Bound: 2.5x the forward's
     FLOPs (S again, dP, dV, dK, dQ) at the tensor cores' rate, or the
     bytes (q, k, v, out, dout and lse read, dq, dk, dv written)."""
     import torch.nn.functional as F
@@ -3005,7 +3015,8 @@ def time_attention_bwd(fa, ops, peaks) -> list:
                            lse, *(t.transpose(1, 2) for t in (dq, dk, dv)),
                            causal, window)
         ms = cuda_ms(kernel, 5, warmup=1)
-        passes = kernel_device_ms(kernel, fa.bwd_passes(hd, dt), 3)
+        splits = fa.bwd_splits(b, kvh, skv, h // kvh)
+        passes = kernel_device_ms(kernel, fa.bwd_passes(hd, dt, splits), 3)
         device_ms = sum(passes.values())
 
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -3040,6 +3051,7 @@ def time_attention_bwd(fa, ops, peaks) -> list:
         t_ops, t_bytes = flops / flops_rate, nbytes / mem_rate
         row = {"model": model, "h": h, "kvh": kvh, "hd": hd, "b": b,
                "sq": sq, "skv": skv, "causal": causal, "window": window,
+               "splits": splits,
                "ms": ms, "device_ms": device_ms, "device_ms_by_pass": passes,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "library_device_ms": lib_device_ms,
@@ -3047,6 +3059,7 @@ def time_attention_bwd(fa, ops, peaks) -> list:
                "bytes": nbytes, "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         row["bound_share_device"] = row["bound_ms"] / device_ms
+        row["device_over_library_device"] = device_ms / lib_device_ms
         emit({"phase": "time_attention_bwd", **row})
         rows.append(row)
         del q, k, v, dout, out, lse, dq, dk, dv

@@ -73,7 +73,11 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "wgmma_sm90.cuh"
+
 namespace {
+
+using namespace wgmma_sm90;
 
 constexpr float MASKED = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -136,19 +140,12 @@ constexpr int TC_BQ = 128;       // query rows per block: two warpgroups
 constexpr int TC_BKV = 128;      // keys per tile
 constexpr int TC_THREADS = 256;
 
-// Shared-memory tile geometry for head dim HD (padded to HDP >= 16).  A
-// tile of ROWS rows is HDP*2/RB column blocks of RB bytes per row (RB =
-// 128, 64 or 32: the widest swizzle the row allows), each block ROWS x RB
-// as TMA writes it and wgmma reads it in the B128/B64/B32 layouts: 16-byte
-// chunk c of row r sits at chunk c ^ ((byte offset >> 7) & (RB/16 - 1)).
-// Block bases are multiples of 1 KB, as the swizzles need.
+// Shared-memory tile geometry for head dim HD: the swizzled column blocks
+// of wgmma_sm90.cuh (Swz), a Q tile and the K/V ring.
 template <int HD>
-struct Tile {
-  static constexpr int HDP = HD < 16 ? 16 : HD;
-  static constexpr int RB = HDP * 2 < 128 ? HDP * 2 : 128;
-  static constexpr int NBLK = HDP * 2 / RB;       // column blocks per row
-  // wgmma descriptor layout type: 1 = B128, 2 = B64, 3 = B32
-  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+struct Tile : Swz<HD> {
+  static constexpr int HDP = Swz<HD>::HDP;
+  static constexpr int RB = Swz<HD>::RB;
   static constexpr int Q_BYTES = TC_BQ * HDP * 2;
   static constexpr int KV_BYTES = TC_BKV * HDP * 2;
   static constexpr int STAGES = 3;                // the K/V ring
@@ -160,150 +157,6 @@ struct Tile {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ----- wgmma ---------------------------------------------------------------
-
-// Matrix descriptor: start address, leading and stride byte offsets (16-byte
-// units), swizzle layout type.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from touching accumulators around an async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// D (64 x 128, fp32) (+)= A (64 x 16, smem, K-major) * B (16 x 128, smem,
-// K-major); scale_d 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 16, fp32) += A (64 x 16 bf16, registers) * B (16 x 16, smem,
-// MN-major).
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 32, fp32) += A (64 x 16 bf16, registers) * B (16 x 32, smem,
-// MN-major).
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 64, fp32) += A (64 x 16 bf16, registers) * B (16 x 64, smem,
-// MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, fp32) += A (64 x 16 bf16, registers) * B (16 x 128, smem,
-// MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
-  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
-  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
-}
-
-// 2^x on the SFU; arguments here are <= 0, and a result below 2^-126
-// (a weight ~1e-38 of the row's largest) flushes to 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Scale one S tile into the exp2 domain, mask it where `full` is false, and
@@ -355,50 +208,6 @@ __device__ __forceinline__ void softmax_tile(float* s, bool full, int qpos0,
   }
   l0 = l0 * c0 + ls0;
   l1 = l1 * c1 + ls1;
-}
-
-// ----- mbarriers and named barriers ------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t addr, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(addr), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t addr) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
-               :: "r"(addr) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t addr, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(TC_THREADS) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(TC_THREADS) : "memory");
-}
-
-// ----- TMA ---------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t addr, uint32_t bytes) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
-               :: "r"(addr), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t mbar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3), "r"(mbar)
-      : "memory");
 }
 
 // Thread t of warp w (0..7) holds, of each accumulator (wgmma's layout:
@@ -614,52 +423,6 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (so the
-// library needs no -lcuda); null if the driver has none
-EncodeTiledFn encode_fn() {
-  static const EncodeTiledFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                            cudaEnableDefault, &res) ==
-                        cudaSuccess &&
-                    res == cudaDriverEntryPointSuccess;
-    return ok ? reinterpret_cast<EncodeTiledFn>(ptr) : nullptr;
-  }();
-  return fn;
-}
-
-// A (B, heads, S, hd) bf16 view with (b, head, seq) strides in elements, as
-// boxes of RB bytes x 128 rows in the tile's swizzle.  Rows past S and the
-// columns past hd 8 (its box is 16 wide) are filled with zeros.
-template <int HD>
-bool make_map(CUtensorMap* map, const void* ptr, int b, int heads, int seq,
-              long long sb, long long sh, long long ss) {
-  using L = Tile<HD>;
-  EncodeTiledFn fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)seq,
-                              (cuuint64_t)heads, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)(L::RB / 2), (cuuint32_t)TC_BKV, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = L::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : L::RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // ---------------------------------------------------------------------------
 // fp32 on the CUDA cores
 // ---------------------------------------------------------------------------
@@ -859,9 +622,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         cudaStream_t stream) {
   const int b = bh / p.h;
   CUtensorMap mq, mk, mv;
-  if (!make_map<HD>(&mq, q, b, p.h, p.sq, p.q_sb, p.q_sh, p.q_ss) ||
-      !make_map<HD>(&mk, k, b, p.kvh, p.skv, p.k_sb, p.k_sh, p.k_ss) ||
-      !make_map<HD>(&mv, v, b, p.kvh, p.skv, p.v_sb, p.v_sh, p.v_ss))
+  if (!make_map<HD>(&mq, q, b, p.h, p.sq, p.q_sb, p.q_sh, p.q_ss, TC_BQ) ||
+      !make_map<HD>(&mk, k, b, p.kvh, p.skv, p.k_sb, p.k_sh, p.k_ss,
+                    TC_BKV) ||
+      !make_map<HD>(&mv, v, b, p.kvh, p.skv, p.v_sb, p.v_sh, p.v_ss,
+                    TC_BKV))
     return cudaErrorInvalidValue;
   auto kern = flash_attention_bf16_kernel<HD>;
   const size_t bytes = Tile<HD>::SMEM;

@@ -26,21 +26,26 @@
 // attention always sees its own key and the unmasked calls see all, so no
 // model's path meets such a row.
 //
-// Three passes, deterministic, no atomics:
-//   1. bwd_delta_kernel: D = rowsum(dout * out) in fp32, one warp a row.
-//   2. dK and dV: a block per (b, kv head, 64-key tile) holds its K and V
-//      and accumulates dK and dV in registers while it walks the G query
-//      heads of its KV head and, for each, the 64-row q tiles that see
-//      its keys (the causal and window limits skip the rest): the G heads
-//      are summed inside the block, with no cross-block reduction.
-//   3. dQ: a block per (b, head, 64-row q tile) holds Q, dout, lse and D
-//      and accumulates dQ over the key tiles its rows see.
-//   Both recompute S and P from lse (no (Sq, Skv) tensor reaches memory).
+// Passes, deterministic, no atomics:
+//   1. bwd_delta_kernel: D = rowsum(dout * out) in fp32, 16 bytes a lane,
+//      into the rowstats scratch (2, B*H, Sq_pad): plane 0 lse * log2(e)
+//      (+inf on the padded rows past Sq, so their P is exactly 0), plane 1
+//      D (0 there).  Sq_pad is Sq rounded up to 128.
+//   2. dK and dV: a block per key tile holds its K and V and accumulates
+//      dK and dV while it walks the query heads of its KV head and, for
+//      each, the q tiles that see its keys (the causal and window limits
+//      skip the rest).
+//   3. dQ: a block per (b, head, q tile) holds Q, dout, lse and D and
+//      accumulates dQ over the key tiles its rows see.
+//   Both recompute S and P from lse (no (Sq, Skv) tensor reaches memory);
+//   the dQ pass recomputes S and dP rather than adding dQ up with atomics,
+//   so the kernel does 7 tile products where the bound counts 5.
 // Two routes, picked by dtype and head dim:
 //   * bf16 at hd 64 and 128 (every model of the zoo but the reduced
-//     configs): bwd_dkdv_tc_kernel and bwd_dq_tc_kernel, products on the
-//     tensor cores (mma.sync m16n8k16, fp32 accumulators; P and dS
-//     rounded to bf16 as the next product's operand), see below.
+//     configs): bwd_dkdv_wgmma_kernel and bwd_dq_wgmma_kernel, wgmma on
+//     tiles that TMA brings into swizzled shared memory (see below), and
+//     bwd_dkdv_reduce_kernel where the G query heads of a KV head are
+//     split over several blocks.
 //   * fp32, and bf16 at hd 8-32: bwd_dkdv_kernel and bwd_dq_kernel on the
 //     CUDA cores, exact in fp32: operands in shared memory as fp32 (bf16
 //     converted on load), 4x4 (S, dP) and 4x(hd/16) (dK, dV, dQ)
@@ -51,8 +56,43 @@
 // (S again, dP, dV, dK, dQ), at qwen3-0.6b's shape (B 4, S 2048, 16/8
 // heads of 128, causal) 1.7e11 against ~170 MB of inputs and gradients,
 // so the bound is the tensor cores' rate (0.174 ms at 989 TFLOP/s).
-// mma.sync reaches a part of that rate; wgmma with TMA-fed tiles (as the
-// forward) is later work.
+//
+// The bf16 route, built like the forward (flash_attention.cu) from the
+// pieces of wgmma_sm90.cuh:
+//   * dK/dV: a block of three warpgroups per (b, KV head, head split,
+//     128-key tile); blocks of the first key tiles (the most query rows
+//     under a causal mask) are issued first.  K and V come once by TMA
+//     into swizzled shared memory; each consumer warpgroup owns 64 of the
+//     keys.  The producer warpgroup (its registers given to the consumers,
+//     setmaxnreg 24 / 240) streams the 64-row q tiles its keys see through
+//     a two-stage ring, each stage Q, dO (tiled TMA) and the rows' lse and
+//     D (bulk copies), with full and empty mbarriers.  Per q tile:
+//     S^T = K Q^T and dP^T = V dO^T on SS wgmma (m64n64k16, fp32 in
+//     registers); P^T = exp2(S^T scale log2e - lse log2e) on the SFU and
+//     dS^T = P^T (dP^T - D) in registers, masked element by element only
+//     on a tile that crosses the causal diagonal or the window's edge;
+//     then dV += P^T dO and dK += dS^T Q on RS wgmma, P^T and dS^T rounded
+//     to bf16 as the A operand straight from the accumulators, dO and Q
+//     read as the MN-major B operand (as the forward reads V).  At hd 128
+//     the registers hold one tile's products at a time, so the consumer
+//     warpgroups take turns to issue them (ping-pong, two named
+//     barriers): one forms P^T and dS^T while the tensor cores work for
+//     the other.  (In the dQ pass, whose products are lighter, turns
+//     measured slower, and it has none.)
+//   * When B * KVH * (key tiles) leaves fewer than about two blocks an SM
+//     (granite-34b's MQA, G 48), the G query heads of a KV head are split
+//     over several blocks (flash_attention.py:bwd_splits): each writes its
+//     fp32 partial dK and dV into a scratch the wrapper allocates, and
+//     bwd_dkdv_reduce_kernel sums the partials in split order.
+//   * dQ: three warpgroups per (b, head, 128-row q tile), heaviest tiles
+//     first; Q and dO stay in shared memory, K and V stream through a
+//     three-stage ring of 64-key tiles.  S = Q K^T and dP = dO V^T on SS
+//     wgmma, dS in registers, dQ += dS K on RS wgmma with K as the
+//     MN-major B operand.
+//   Rows past Sq and keys past Skv are zero in the tiles (TMA fills them);
+//   padded rows get P = 0 from their +inf lse, padded keys are masked in
+//   the dQ pass and never stored by the dK/dV pass.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -61,17 +101,22 @@
 
 #include <type_traits>
 
-#include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
+
+using namespace wgmma_sm90;
 
 constexpr int BQ = 64;           // query rows per tile
 constexpr int BKV = 64;          // keys per tile
 constexpr int NTHREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct BwdParams {
   int sq, skv, h, kvh, causal, window;
   float scale;
+  int sq_pad;         // rows of a rowstats plane per (b, head)
+  long long plane;    // floats in one rowstats plane: B * H * sq_pad
   // (b, head, seq) strides in elements of q, k, v, out, dout, dq, dk, dv
   long long s[8][3];
 };
@@ -164,30 +209,48 @@ struct OutTile {
 };
 
 // ---------------------------------------------------------------------------
-// 1. D = rowsum(dout * out)
+// 1. D = rowsum(dout * out), and lse in the exp2 domain
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// A row of HD elements is CH 16-byte chunks, one a lane: a warp takes
+// 32 / CH rows (16 at bf16 hd 64) and sums each row over its CH lanes.
+template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS)
 bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                 float* __restrict__ delta, int hd, const BwdParams p) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+                 const float* __restrict__ lse, float* __restrict__ rowstats,
+                 const BwdParams p) {
+  constexpr int VEC = 16 / sizeof(T);           // elements a chunk
+  constexpr int CH = HD / VEC;                  // chunks a row
+  constexpr int ROWS = NTHREADS / CH;           // rows a block
+  const int r = threadIdx.x / CH, c = threadIdx.x % CH;
   const int bh = blockIdx.y, bi = bh / p.h, head = bh % p.h;
-  const int qpos = blockIdx.x * (NTHREADS / 32) + warp;
-  if (qpos >= p.sq) return;
-  const T* orow = o + bi * p.s[O][0] + head * p.s[O][1] + qpos * p.s[O][2];
-  const T* drow =
-      dout + bi * p.s[DO][0] + head * p.s[DO][1] + qpos * p.s[DO][2];
+  const int qpos = blockIdx.x * ROWS + r;
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32) acc += to_f(orow[d]) * to_f(drow[d]);
+  if (qpos < p.sq) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        o + bi * p.s[O][0] + head * p.s[O][1] + qpos * p.s[O][2] + c * VEC);
+    const uint4 dv = *reinterpret_cast<const uint4*>(
+        dout + bi * p.s[DO][0] + head * p.s[DO][1] + qpos * p.s[DO][2] +
+        c * VEC);
+    const T* oe = reinterpret_cast<const T*>(&ov);
+    const T* de = reinterpret_cast<const T*>(&dv);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+    for (int i = 0; i < VEC; ++i) acc += to_f(oe[i]) * to_f(de[i]);
+  }
+#pragma unroll
+  for (int off = CH / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[(size_t)bh * p.sq + qpos] = acc;
+  if (c == 0 && qpos < p.sq_pad) {
+    const size_t row = (size_t)bh * p.sq_pad + qpos;
+    rowstats[row] =
+        qpos < p.sq ? lse[(size_t)bh * p.sq + qpos] * LOG2E : INFINITY;
+    rowstats[p.plane + row] = acc;
+  }
 }
 
 // ---------------------------------------------------------------------------
-// 2. dK, dV: a block per (b, kv head, key tile), over its G query heads
+// 2. dK, dV on the CUDA cores: a block per (b, kv head, key tile), over
+//    its G query heads
 // ---------------------------------------------------------------------------
 
 template <int HD>
@@ -249,6 +312,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int gi = 0; gi < g && q_lo <= q_hi; ++gi) {
     const int head = kv_head * g + gi;
     const size_t row0 = ((size_t)bi * p.h + head) * p.sq;
+    const size_t drow0 = ((size_t)bi * p.h + head) * p.sq_pad;
     const T* qb = q + bi * p.s[Q][0] + head * p.s[Q][1];
     const T* db = dout + bi * p.s[DO][0] + head * p.s[DO][1];
     for (int t = q_lo / BQ; t <= q_hi / BQ; ++t) {
@@ -259,7 +323,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int r = tid; r < BQ; r += NTHREADS) {
         const int qpos = q_first + r;
         Ls[r] = qpos < p.sq ? lse[row0 + qpos] : 0.f;
-        Ds[r] = qpos < p.sq ? delta[row0 + qpos] : 0.f;
+        Ds[r] = qpos < p.sq ? delta[drow0 + qpos] : 0.f;
       }
       __syncthreads();
 
@@ -323,7 +387,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// 3. dQ: a block per (b, head, q tile), over the key tiles its rows see
+// 3. dQ on the CUDA cores: a block per (b, head, q tile), over the key
+//    tiles its rows see
 // ---------------------------------------------------------------------------
 
 template <int HD>
@@ -364,6 +429,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_first = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int q_last = min(q_first + BQ, p.sq) - 1;
   const size_t row0 = (size_t)bh * p.sq;
+  const size_t drow0 = (size_t)bh * p.sq_pad;
   load_tile<T, HD, BQ>(Qs, q + bi * p.s[Q][0] + head * p.s[Q][1], p.s[Q][2],
                        q_first, p.sq);
   load_tile<T, HD, BQ>(dOs, dout + bi * p.s[DO][0] + head * p.s[DO][1],
@@ -371,7 +437,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = tid; r < BQ; r += NTHREADS) {
     const int qpos = q_first + r;
     Ls[r] = qpos < p.sq ? lse[row0 + qpos] : 0.f;
-    Ds[r] = qpos < p.sq ? delta[row0 + qpos] : 0.f;
+    Ds[r] = qpos < p.sq ? delta[drow0 + qpos] : 0.f;
   }
 
   // the keys that rows [q_first, q_last] see
@@ -439,344 +505,542 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-
 // ---------------------------------------------------------------------------
-// bf16 at hd 64 and 128 on the tensor cores (mma.sync m16n8k16)
+// bf16 at hd 64 and 128: wgmma on TMA-fed swizzled tiles
 // ---------------------------------------------------------------------------
-//
-// The same two passes with the products on bf16 mma.sync and fp32
-// accumulators: a block of 4 warps, each warp 16 rows of the block's 64
-// (keys in dK/dV, queries in dQ), walking the other side 16 at a time.
-// Tiles sit in shared memory as bf16, rows padded by 8 elements so that
-// ldmatrix's eight row addresses fall in eight bank groups, filled by
-// cp.async (zeros past the sequence).  S^T and dP^T (dK/dV) or S and dP
-// (dQ) come from mma's C fragments; P and dS are formed there in fp32,
-// rounded to bf16 and fed to the next mma as A fragments without
-// passing through shared memory (the flash-attention-2 layout trick).
-// That rounding of P and dS is what this path adds to the CUDA-core
-// kernels' numerics.
 
-constexpr int TC_ROWS = 64;          // a block's rows, and a loaded tile's
-constexpr int TC_WARPS = 4;
-constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int CONSUMERS = 256;          // two consumer warpgroups
+constexpr int WG_THREADS = CONSUMERS + 128;   // and one producer
+constexpr int KT = 128;     // keys of a dK/dV block (64 a consumer)
+constexpr int QT = 64;      // query rows of a dK/dV stage
+constexpr int QB_WG = 128;  // query rows of a dQ block (64 a consumer)
+constexpr int KS = 64;      // keys of a dQ stage
+constexpr int BOX = 64;     // rows of one TMA box
+constexpr int ROW_PAD = 128;            // rowstats' rows: Sq rounded up
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A 64 x 64 accumulator (32 floats a thread) as the four A fragments of
+// the k-steps over its columns
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float* x) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j][0] = pack_bf16(x[8 * j], x[8 * j + 1]);
+    a[j][1] = pack_bf16(x[8 * j + 2], x[8 * j + 3]);
+    a[j][2] = pack_bf16(x[8 * j + 4], x[8 * j + 5]);
+    a[j][3] = pack_bf16(x[8 * j + 6], x[8 * j + 7]);
+  }
+}
+
+// X (64 x 64) = A (64 rows of a tile, K-major) B^T (64 rows, K-major): the
+// product over hd, HDP/16 SS wgmmas, committed as one group.  a_rows and
+// b_rows are the tiles' rows per column block.
+template <int HD>
+__device__ __forceinline__ void product_over_hd(float* x, uint32_t a_s,
+                                                int a_rows, uint32_t b_s,
+                                                int b_rows) {
+  using G = Swz<HD>;
+#pragma unroll
+  for (int kk = 0; kk < G::HDP / 16; ++kk) {
+    const uint32_t cb = (kk * 32) / G::RB, kin = (kk * 32) % G::RB;
+    wgmma_ss_n64(x,
+                 make_desc(a_s + cb * a_rows * G::RB + kin, 16, 8 * G::RB,
+                           G::LAYOUT),
+                 make_desc(b_s + cb * b_rows * G::RB + kin, 16, 8 * G::RB,
+                           G::LAYOUT),
+                 kk > 0);
+  }
+  wgmma_commit();
+}
+
+// ACC (64 x HD) += A (64 x 64, four k-steps of fragments) B (64 rows of a
+// tile of `rows` rows per column block, MN-major)
+template <int HD>
+__device__ __forceinline__ void product_over_rows(float* acc,
+                                                  const uint32_t (&a)[4][4],
+                                                  uint32_t b_s, int rows) {
+  using G = Swz<HD>;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_rs<G::HDP>(acc, a[j],
+                     make_desc(b_s + j * 16 * G::RB, rows * G::RB, 8 * G::RB,
+                               G::LAYOUT));
+}
+
+// Write a 64 x HD accumulator (rows row0.., this thread's rows row0 +
+// 16 w + lane / 4 and + 8) times `mul` as bf16, rows at or past `limit`
+// dropped
+template <int HD>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* dst, long long ss,
+                                           int r0, int limit,
+                                           const float* acc, float mul) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 4) {
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    if (r0 < limit)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r0 * ss + col) =
+          __floats2bfloat162_rn(acc[i] * mul, acc[i + 1] * mul);
+    if (r0 + 8 < limit)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (r0 + 8) * ss + col) =
+          __floats2bfloat162_rn(acc[i + 2] * mul, acc[i + 3] * mul);
+  }
+}
 
 template <int HD>
-struct TcSmem {
-  static constexpr int LD = HD + 8;                 // padded row, elements
-  static constexpr int TILE = TC_ROWS * LD;         // one tile, elements
-  static constexpr size_t BYTES =
-      4 * TILE * sizeof(__nv_bfloat16) + 2 * TC_ROWS * sizeof(float);
+struct DkdvTiles {
+  static constexpr int KV_BYTES = KT * HD * 2;   // K or V
+  static constexpr int QT_BYTES = QT * HD * 2;   // Q or dO of a stage
+  static constexpr int ROW_BYTES = QT * 4;       // lse or D of a stage
+  static constexpr int STAGES = 2;
+  // K, V, the stages' Q, then their dO (1 KB-aligned tiles), then the
+  // stages' lse and D, then kv_full and the stages' full and empty
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;
+  static constexpr int ROWS_OFF = DO_OFF + STAGES * QT_BYTES;
+  static constexpr int BAR_OFF = ROWS_OFF + STAGES * 2 * ROW_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
 };
 
-// Copy 64 rows of a (seq, HD) bf16 slice into a padded tile, zeros past
-// `limit` (the source address stays in bounds).
+// dK, dV of one 128-key tile over the q tiles of heads [g0, g1) of its KV
+// head.  Grid: x = (b * KVH + kv head) * splits + split, y = key tile.
+// splits 1 writes bf16 dk, dv; more write the fp32 partials
+// part[(grad * splits + split), b * KVH + kv head, kpos, :] (grad 0 dK
+// before its scale, 1 dV) for bwd_dkdv_reduce_kernel.
 template <int HD>
-__device__ __forceinline__ void tc_load(__nv_bfloat16* dst,
-                                        const __nv_bfloat16* src,
-                                        long long ss, int first, int limit) {
-  using namespace mma_sm90;
-  constexpr int CH = HD / 8;
-  for (int i = threadIdx.x; i < TC_ROWS * CH; i += TC_THREADS) {
-    const int r = i / CH, c = i % CH;
-    const int pos = first + r;
-    const __nv_bfloat16* g = src + (long long)min(pos, limit - 1) * ss + 8 * c;
-    cp_async16(smem_u32(dst + r * TcSmem<HD>::LD + 8 * c), g,
-               pos < limit ? 16 : 0);
-  }
-}
-
-// A fragment (16 rows x 16 k) of a row-major padded tile at (r0, k0)
-template <int HD>
-__device__ __forceinline__ void lds_a(uint32_t (&a)[4],
-                                      const __nv_bfloat16* tile, int r0,
-                                      int k0) {
-  const int l = threadIdx.x % 32;
-  const int r = r0 + (l % 8) + 8 * ((l / 8) % 2), k = k0 + 8 * (l / 16);
-  mma_sm90::ldsm_x4(a, mma_sm90::smem_u32(tile + r * TcSmem<HD>::LD + k));
-}
-// B fragments of two n-tiles (n0..n0+15) x k16 from a tile stored [n][k]
-template <int HD>
-__device__ __forceinline__ void lds_b_nk(uint32_t (&b)[4],
-                                         const __nv_bfloat16* tile, int n0,
-                                         int k0) {
-  const int l = threadIdx.x % 32;
-  const int n = n0 + (l % 8) + 8 * (l / 16), k = k0 + 8 * ((l / 8) % 2);
-  mma_sm90::ldsm_x4(b, mma_sm90::smem_u32(tile + n * TcSmem<HD>::LD + k));
-}
-// the same from a tile stored [k][n] (ldmatrix.trans)
-template <int HD>
-__device__ __forceinline__ void lds_b_kn(uint32_t (&b)[4],
-                                         const __nv_bfloat16* tile, int k0,
-                                         int n0) {
-  const int l = threadIdx.x % 32;
-  const int k = k0 + (l % 8) + 8 * ((l / 8) % 2), n = n0 + 8 * (l / 16);
-  mma_sm90::ldsm_x4_t(b, mma_sm90::smem_u32(tile + k * TcSmem<HD>::LD + n));
-}
-
-// x (16 x 16) += A (16 x HD) B^T (HD x 16), A and B row-major tiles at
-// rows a0 and b0: the S = Q K^T and dP = dO V^T micro-tiles (and their
-// transposes), as two n-tiles of C fragments
-template <int HD>
-__device__ __forceinline__ void tc_abt(float (&x)[2][4],
-                                       const __nv_bfloat16* A, int a0,
-                                       const __nv_bfloat16* B, int b0) {
-#pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[t][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4], b[4];
-    lds_a<HD>(a, A, a0, 16 * kk);
-    lds_b_nk<HD>(b, B, b0, 16 * kk);
-    mma_sm90::mma_bf16(x[0], a, b[0], b[1]);
-    mma_sm90::mma_bf16(x[1], a, b[2], b[3]);
-  }
-}
-
-// acc (16 x HD) += A (16 x 16, fragments in registers) B (16 x HD, rows
-// k0.. of a row-major tile)
-template <int HD>
-__device__ __forceinline__ void tc_acc(float (&acc)[HD / 8][4],
-                                       const uint32_t (&a)[4],
-                                       const __nv_bfloat16* B, int k0) {
-#pragma unroll
-  for (int np = 0; np < HD / 16; ++np) {
-    uint32_t b[4];
-    lds_b_kn<HD>(b, B, k0, 16 * np);
-    mma_sm90::mma_bf16(acc[2 * np], a, b[0], b[1]);
-    mma_sm90::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-  }
-}
-
-// Two n-tiles of C fragments (16 x 16) as the A fragment of one k-step
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4],
-                                       const float (&x)[2][4]) {
-  a[0] = mma_sm90::pack_bf16(x[0][0], x[0][1]);
-  a[1] = mma_sm90::pack_bf16(x[0][2], x[0][3]);
-  a[2] = mma_sm90::pack_bf16(x[1][0], x[1][1]);
-  a[3] = mma_sm90::pack_bf16(x[1][2], x[1][3]);
-}
-
-// Write a (16 x HD) accumulator times `mul` as bf16 rows r0.. of a
-// (seq, HD) slice, rows at or past `limit` dropped
-template <int HD>
-__device__ __forceinline__ void tc_store(__nv_bfloat16* dst, long long ss,
-                                         int r0, int limit,
-                                         const float (&acc)[HD / 8][4],
-                                         float mul) {
-  const int l = threadIdx.x % 32, g = l / 4, tig = l % 4;
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    const int c = 8 * j + 2 * tig;
-    if (r0 + g < limit)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (r0 + g) * ss + c) =
-          __floats2bfloat162_rn(acc[j][0] * mul, acc[j][1] * mul);
-    if (r0 + g + 8 < limit)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (r0 + g + 8) * ss + c) =
-          __floats2bfloat162_rn(acc[j][2] * mul, acc[j][3] * mul);
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(TC_THREADS)
-bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dk,
-                   __nv_bfloat16* __restrict__ dv, const BwdParams p) {
-  using L = TcSmem<HD>;
-  extern __shared__ __align__(16) uint8_t tc_smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(tc_smem);
-  __nv_bfloat16* Vs = Ks + L::TILE;
-  __nv_bfloat16* Qs = Vs + L::TILE;
-  __nv_bfloat16* dOs = Qs + L::TILE;
-  float* Ls = reinterpret_cast<float*>(dOs + L::TILE);
-  float* Ds = Ls + TC_ROWS;
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ rowstats,
+                      float* __restrict__ part, int splits,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, const BwdParams p) {
+  using L = DkdvTiles<HD>;
+  using G = Swz<HD>;
+  constexpr int NST = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t k_s = base, v_s = base + L::KV_BYTES;
+  auto q_s = [&](int st) { return base + L::Q_OFF + st * L::QT_BYTES; };
+  auto do_s = [&](int st) { return base + L::DO_OFF + st * L::QT_BYTES; };
+  auto rows_off = [&](int st) { return L::ROWS_OFF + st * 2 * L::ROW_BYTES; };
+  const uint32_t bars = base + L::BAR_OFF;
+  const uint32_t kv_full = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + NST + st); };
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g8 = lane / 4, tig = lane % 4;
-  const int bkv = blockIdx.y, bi = bkv / p.kvh, kv_head = bkv % p.kvh;
-  const int grp = p.h / p.kvh;
-  const int k_first = blockIdx.x * TC_ROWS;
-  const int k_last = min(k_first + TC_ROWS, p.skv) - 1;
-  const int kw = 16 * warp;                 // this warp's keys in the tile
-  tc_load<HD>(Ks, k + bi * p.s[K][0] + kv_head * p.s[K][1], p.s[K][2],
-              k_first, p.skv);
-  tc_load<HD>(Vs, v + bi * p.s[V][0] + kv_head * p.s[V][1], p.s[V][2],
-              k_first, p.skv);
-  mma_sm90::cp_async_commit();
-
+  const int bkv = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int bi = bkv / p.kvh, kv_head = bkv % p.kvh;
+  const int g = p.h / p.kvh;
+  const int g0 = split * g / splits, g1 = (split + 1) * g / splits;
+  const int k_first = blockIdx.y * KT;
+  const int k_last = min(k_first + KT, p.skv) - 1;
+  // the q tiles that see any of keys [k_first, k_last], for each head
   const int q_lo = p.causal ? k_first : 0;
   const int q_hi = p.window > 0 ? min(p.sq - 1, k_last + p.window - 1)
                                 : p.sq - 1;
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[j][i] = dv_acc[j][i] = 0.f;
+  const int t_lo = q_lo / QT;
+  const int nt = q_lo <= q_hi ? q_hi / QT - t_lo + 1 : 0;
+  const int n = nt * (g1 - g0);
 
-  for (int gi = 0; gi < grp && q_lo <= q_hi; ++gi) {
-    const int head = kv_head * grp + gi;
-    const size_t row0 = ((size_t)bi * p.h + head) * p.sq;
-    const __nv_bfloat16* qb = q + bi * p.s[Q][0] + head * p.s[Q][1];
-    const __nv_bfloat16* db = dout + bi * p.s[DO][0] + head * p.s[DO][1];
-    for (int t = q_lo / TC_ROWS; t <= q_hi / TC_ROWS; ++t) {
-      const int q_first = t * TC_ROWS;
-      __syncthreads();    // the previous step is done with Qs, dOs, Ls, Ds
-      tc_load<HD>(Qs, qb, p.s[Q][2], q_first, p.sq);
-      tc_load<HD>(dOs, db, p.s[DO][2], q_first, p.sq);
-      mma_sm90::cp_async_commit();
-      for (int r = tid; r < TC_ROWS; r += TC_THREADS) {
-        const int qpos = q_first + r;
-        Ls[r] = qpos < p.sq ? lse[row0 + qpos] : 0.f;
-        Ds[r] = qpos < p.sq ? delta[row0 + qpos] : 0.f;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+#pragma unroll
+      for (int cb = 0; cb < G::NBLK; ++cb)
+#pragma unroll
+        for (int hb = 0; hb < KT / BOX; ++hb) {
+          const uint32_t off = cb * KT * G::RB + hb * BOX * G::RB;
+          tma_load_4d(k_s + off, &tm_k, kv_full, cb * G::RB / 2,
+                      k_first + hb * BOX, kv_head, bi);
+          tma_load_4d(v_s + off, &tm_v, kv_full, cb * G::RB / 2,
+                      k_first + hb * BOX, kv_head, bi);
+        }
+      for (int i = 0; i < n; ++i) {
+        const int st = i % NST;
+        const int head = kv_head * g + g0 + i / nt;
+        const int q_first = (t_lo + i % nt) * QT;
+        if (i >= NST) mbar_wait(empty(st), ((i - NST) / NST) & 1);
+        mbar_expect_tx(full(st), 2 * L::QT_BYTES + 2 * L::ROW_BYTES);
+#pragma unroll
+        for (int cb = 0; cb < G::NBLK; ++cb) {
+          tma_load_4d(q_s(st) + cb * QT * G::RB, &tm_q, full(st),
+                      cb * G::RB / 2, q_first, head, bi);
+          tma_load_4d(do_s(st) + cb * QT * G::RB, &tm_do, full(st),
+                      cb * G::RB / 2, q_first, head, bi);
+        }
+        const float* rs =
+            rowstats + ((size_t)bi * p.h + head) * p.sq_pad + q_first;
+        bulk_load(base + rows_off(st), rs, L::ROW_BYTES, full(st));
+        bulk_load(base + rows_off(st) + L::ROW_BYTES, rs + p.plane,
+                  L::ROW_BYTES, full(st));
       }
-      mma_sm90::cp_async_wait<0>();
-      __syncthreads();
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = tid / 128, t4 = lane % 4;
+    const int kw_lo = k_first + 64 * wg;          // this warpgroup's keys
+    const int krow = kw_lo + 16 * (warp % 4) + lane / 4;   // and + 8
+    const float sl2 = p.scale * LOG2E;
+    float dk_acc[G::HDP / 2], dv_acc[G::HDP / 2];
+#pragma unroll
+    for (int i = 0; i < G::HDP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    float s[32], dp[32];
+    uint32_t pa[4][4], da[4][4];
 
-      for (int c = 0; c < TC_ROWS / 16; ++c) {
-        // S^T = K Q^T and dP^T = V dO^T: rows this warp's keys, columns
-        // queries 16 c .. 16 c + 15 of the tile
-        float st[2][4], dpt[2][4];
-        tc_abt<HD>(st, Ks, kw, Qs, 16 * c);
-        tc_abt<HD>(dpt, Vs, kw, dOs, 16 * c);
+    // the warpgroups take turns to issue their products (ping-pong), so
+    // one forms P^T and dS^T while the tensor cores work for the other;
+    // warpgroup 0 goes first, and 1 hands no turn on after its last
+    auto my_turn = [&]() { named_sync(1 + wg); };
+    auto your_turn = [&]() { named_arrive(2 - wg); };
+    mbar_wait(kv_full, 0);
+    if (wg == 1 && n > 0) your_turn();
+    for (int i = 0; i < n; ++i) {
+      const int st = i % NST;
+      const int q_first = (t_lo + i % nt) * QT;
+      mbar_wait(full(st), (i / NST) & 1);
+      // S^T = K Q^T and dP^T = V dO^T: rows this warpgroup's keys,
+      // columns the tile's queries
+      my_turn();
+      wgmma_fence();
+      product_over_hd<HD>(s, k_s + wg * 64 * G::RB, KT, q_s(st), QT);
+      product_over_hd<HD>(dp, v_s + wg * 64 * G::RB, KT, do_s(st), QT);
+      your_turn();
+      const float* ls =
+          reinterpret_cast<const float*>(gbase + rows_off(st));
+      const float* dd = ls + QT;
+      wgmma_wait_1();
+      fence_regs<32>(s);
+      // P^T = exp2(S^T scale log2e - lse log2e); a padded query row has
+      // lse +inf and P 0
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+      for (int m = 0; m < 8; ++m) {
+        const float2 l = *reinterpret_cast<const float2*>(ls + 8 * m + 2 * t4);
+        s[4 * m] = ex2(fmaf(s[4 * m], sl2, -l.x));
+        s[4 * m + 1] = ex2(fmaf(s[4 * m + 1], sl2, -l.y));
+        s[4 * m + 2] = ex2(fmaf(s[4 * m + 2], sl2, -l.x));
+        s[4 * m + 3] = ex2(fmaf(s[4 * m + 3], sl2, -l.y));
+      }
+      const bool full_tile =
+          (!p.causal || kw_lo + 63 <= q_first) &&
+          (p.window <= 0 || kw_lo > q_first + QT - 1 - p.window);
+      if (!full_tile) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int kr = kw + g8 + 8 * (i / 2);
-            const int qc = 16 * c + 8 * nt + 2 * tig + (i % 2);
-            const bool vis = visible(q_first + qc, k_first + kr, p);
-            const float pr = vis ? expf(st[nt][i] * p.scale - Ls[qc]) : 0.f;
-            st[nt][i] = pr;
-            dpt[nt][i] = pr * (dpt[nt][i] - Ds[qc]);
-          }
-        uint32_t pa[4], dsa[4];
-        c_to_a(pa, st);
-        c_to_a(dsa, dpt);
-        tc_acc<HD>(dv_acc, pa, dOs, 16 * c);      // dV += P^T dO
-        tc_acc<HD>(dk_acc, dsa, Qs, 16 * c);      // dK += dS^T Q
+        for (int j = 0; j < 32; ++j) {
+          const int kpos = krow + 8 * ((j % 4) / 2);
+          const int qpos = q_first + 8 * (j / 4) + 2 * t4 + (j % 2);
+          if ((p.causal && kpos > qpos) ||
+              (p.window > 0 && kpos <= qpos - p.window))
+            s[j] = 0.f;
+        }
+      }
+      wgmma_wait_0();
+      fence_regs<32>(dp);
+      // dS^T = P^T (dP^T - D)
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const float2 d = *reinterpret_cast<const float2*>(dd + 8 * m + 2 * t4);
+        dp[4 * m] = s[4 * m] * (dp[4 * m] - d.x);
+        dp[4 * m + 1] = s[4 * m + 1] * (dp[4 * m + 1] - d.y);
+        dp[4 * m + 2] = s[4 * m + 2] * (dp[4 * m + 2] - d.x);
+        dp[4 * m + 3] = s[4 * m + 3] * (dp[4 * m + 3] - d.y);
+      }
+      to_a(pa, s);
+      to_a(da, dp);
+      // dV += P^T dO, dK += dS^T Q
+      fence_regs<G::HDP / 2>(dv_acc);
+      fence_regs<G::HDP / 2>(dk_acc);
+      my_turn();
+      wgmma_fence();
+      product_over_rows<HD>(dv_acc, pa, do_s(st), QT);
+      product_over_rows<HD>(dk_acc, da, q_s(st), QT);
+      wgmma_commit();
+      if (wg == 0 || i + 1 < n) your_turn();
+      wgmma_wait_0();
+      fence_regs<G::HDP / 2>(dv_acc);
+      fence_regs<G::HDP / 2>(dk_acc);
+      mbar_arrive(empty(st));
+    }
+
+    if (splits == 1) {
+      store_bf16<HD>(dk + bi * p.s[DK][0] + kv_head * p.s[DK][1],
+                     p.s[DK][2], krow, p.skv, dk_acc, p.scale);
+      store_bf16<HD>(dv + bi * p.s[DV][0] + kv_head * p.s[DV][1],
+                     p.s[DV][2], krow, p.skv, dv_acc, 1.f);
+    } else {
+      const size_t bkvs = gridDim.x / splits;
+      float* pk = part + ((size_t)split * bkvs + bkv) * p.skv * HD;
+      float* pv = pk + (size_t)splits * bkvs * p.skv * HD;
+#pragma unroll
+      for (int i = 0; i < HD / 2; i += 4) {
+        const int col = 8 * (i / 4) + 2 * t4;
+        if (krow < p.skv) {
+          *reinterpret_cast<float2*>(pk + (size_t)krow * HD + col) =
+              make_float2(dk_acc[i], dk_acc[i + 1]);
+          *reinterpret_cast<float2*>(pv + (size_t)krow * HD + col) =
+              make_float2(dv_acc[i], dv_acc[i + 1]);
+        }
+        if (krow + 8 < p.skv) {
+          *reinterpret_cast<float2*>(pk + (size_t)(krow + 8) * HD + col) =
+              make_float2(dk_acc[i + 2], dk_acc[i + 3]);
+          *reinterpret_cast<float2*>(pv + (size_t)(krow + 8) * HD + col) =
+              make_float2(dv_acc[i + 2], dv_acc[i + 3]);
+        }
       }
     }
   }
-  mma_sm90::cp_async_wait<0>();     // a block with no q tile drains K, V
-  tc_store<HD>(dk + bi * p.s[DK][0] + kv_head * p.s[DK][1], p.s[DK][2],
-               k_first + kw, p.skv, dk_acc, p.scale);
-  tc_store<HD>(dv + bi * p.s[DV][0] + kv_head * p.s[DV][1], p.s[DV][2],
-               k_first + kw, p.skv, dv_acc, 1.f);
+}
+
+// dk = scale * sum over splits of the dK partials, dv = the sum of the dV
+// partials, in split order; four columns a thread
+template <int HD>
+__global__ void __launch_bounds__(NTHREADS)
+bwd_dkdv_reduce_kernel(const float* __restrict__ part,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, int splits, int bkvs,
+                       const BwdParams p) {
+  const size_t n = (size_t)bkvs * p.skv * (HD / 4);     // float4s a split
+  const float4* pk = reinterpret_cast<const float4*>(part);
+  const float4* pv = pk + (size_t)splits * n;
+  for (size_t idx = (size_t)blockIdx.x * NTHREADS + threadIdx.x; idx < n;
+       idx += (size_t)gridDim.x * NTHREADS) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float4 x = pk[sp * n + idx], y = pv[sp * n + idx];
+      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+      c.x += y.x; c.y += y.y; c.z += y.z; c.w += y.w;
+    }
+    const int col = 4 * (int)(idx % (HD / 4));
+    const size_t row = idx / (HD / 4);
+    const int kpos = (int)(row % p.skv), bkv = (int)(row / p.skv);
+    const int bi = bkv / p.kvh, kv_head = bkv % p.kvh;
+    const float sc = p.scale;
+    uint2 uk, uv;
+    uk.x = pack_bf16(a.x * sc, a.y * sc);
+    uk.y = pack_bf16(a.z * sc, a.w * sc);
+    uv.x = pack_bf16(c.x, c.y);
+    uv.y = pack_bf16(c.z, c.w);
+    *reinterpret_cast<uint2*>(dk + bi * p.s[DK][0] + kv_head * p.s[DK][1] +
+                              kpos * p.s[DK][2] + col) = uk;
+    *reinterpret_cast<uint2*>(dv + bi * p.s[DV][0] + kv_head * p.s[DV][1] +
+                              kpos * p.s[DV][2] + col) = uv;
+  }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(TC_THREADS)
-bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, const BwdParams p) {
-  using L = TcSmem<HD>;
-  extern __shared__ __align__(16) uint8_t tc_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
-  __nv_bfloat16* dOs = Qs + L::TILE;
-  __nv_bfloat16* Ks = dOs + L::TILE;
-  __nv_bfloat16* Vs = Ks + L::TILE;
-  float* Ls = reinterpret_cast<float*>(Vs + L::TILE);
-  float* Ds = Ls + TC_ROWS;
+struct DqTiles {
+  static constexpr int Q_BYTES = QB_WG * HD * 2;   // Q or dO
+  static constexpr int KV_BYTES = KS * HD * 2;     // K or V of a stage
+  static constexpr int STAGES = 3;
+  // Q, dO, then the stages' K and V, then q_full and the stages' full and
+  // empty mbarriers
+  static constexpr int KV_OFF = 2 * Q_BYTES;
+  static constexpr int BAR_OFF = KV_OFF + STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
+};
+
+// dQ of one 128-row q tile of one head over the key tiles its rows see.
+// Grid: x = b * H + head, y = q tile (the last, heaviest, first).
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ rowstats,
+                    __nv_bfloat16* __restrict__ dq, const BwdParams p) {
+  using L = DqTiles<HD>;
+  using G = Swz<HD>;
+  constexpr int NST = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base, do_s = base + L::Q_BYTES;
+  auto k_s = [&](int st) { return base + L::KV_OFF + st * 2 * L::KV_BYTES; };
+  auto v_s = [&](int st) { return k_s(st) + L::KV_BYTES; };
+  const uint32_t bars = base + L::BAR_OFF;
+  const uint32_t q_full = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + NST + st); };
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g8 = lane / 4, tig = lane % 4;
-  const int bh = blockIdx.y, bi = bh / p.h, head = bh % p.h;
+  const int bh = blockIdx.x, bi = bh / p.h, head = bh % p.h;
   const int kv_head = head / (p.h / p.kvh);
-  const int q_first = (gridDim.x - 1 - blockIdx.x) * TC_ROWS;
-  const int q_last = min(q_first + TC_ROWS, p.sq) - 1;
-  const int qw = 16 * warp;               // this warp's queries in the tile
-  const size_t row0 = (size_t)bh * p.sq;
-  tc_load<HD>(Qs, q + bi * p.s[Q][0] + head * p.s[Q][1], p.s[Q][2], q_first,
-              p.sq);
-  tc_load<HD>(dOs, dout + bi * p.s[DO][0] + head * p.s[DO][1], p.s[DO][2],
-              q_first, p.sq);
-  mma_sm90::cp_async_commit();
-  for (int r = tid; r < TC_ROWS; r += TC_THREADS) {
-    const int qpos = q_first + r;
-    Ls[r] = qpos < p.sq ? lse[row0 + qpos] : 0.f;
-    Ds[r] = qpos < p.sq ? delta[row0 + qpos] : 0.f;
-  }
-
+  const int q_first = (gridDim.y - 1 - blockIdx.y) * QB_WG;
+  const int q_last = min(q_first + QB_WG, p.sq) - 1;
+  // the key tiles that rows [q_first, q_last] see
   const int k_lo = p.window > 0 ? max(0, q_first - p.window + 1) : 0;
   const int k_hi = p.causal ? min(p.skv - 1, q_last) : p.skv - 1;
-  const __nv_bfloat16* kb = k + bi * p.s[K][0] + kv_head * p.s[K][1];
-  const __nv_bfloat16* vb = v + bi * p.s[V][0] + kv_head * p.s[V][1];
-  float dq_acc[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dq_acc[j][i] = 0.f;
+  const int t_lo = k_lo / KS;
+  const int n = k_lo <= k_hi ? k_hi / KS - t_lo + 1 : 0;
 
-  for (int t = k_lo / TC_ROWS; k_lo <= k_hi && t <= k_hi / TC_ROWS; ++t) {
-    const int k_first = t * TC_ROWS;
-    __syncthreads();              // the previous tile is done with Ks, Vs
-    tc_load<HD>(Ks, kb, p.s[K][2], k_first, p.skv);
-    tc_load<HD>(Vs, vb, p.s[V][2], k_first, p.skv);
-    mma_sm90::cp_async_commit();
-    mma_sm90::cp_async_wait<0>();
-    __syncthreads();
-
-    for (int c = 0; c < TC_ROWS / 16; ++c) {
-      // S = Q K^T and dP = dO V^T: rows this warp's queries, columns
-      // keys 16 c .. 16 c + 15 of the tile
-      float s[2][4], dp[2][4];
-      tc_abt<HD>(s, Qs, qw, Ks, 16 * c);
-      tc_abt<HD>(dp, dOs, qw, Vs, 16 * c);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qr = qw + g8 + 8 * (i / 2);
-          const int kc = 16 * c + 8 * nt + 2 * tig + (i % 2);
-          const bool vis = visible(q_first + qr, k_first + kc, p);
-          const float pr = vis ? expf(s[nt][i] * p.scale - Ls[qr]) : 0.f;
-          dp[nt][i] = pr * (dp[nt][i] - Ds[qr]);
-        }
-      uint32_t dsa[4];
-      c_to_a(dsa, dp);
-      tc_acc<HD>(dq_acc, dsa, Ks, 16 * c);        // dQ += dS K
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), CONSUMERS);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  mma_sm90::cp_async_wait<0>();     // a block with no key tile drains Q, dO
-  tc_store<HD>(dq + bi * p.s[DQ][0] + head * p.s[DQ][1], p.s[DQ][2],
-               q_first + qw, p.sq, dq_acc, p.scale);
+  __syncthreads();
+
+  if (warp >= CONSUMERS / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(q_full, 2 * L::Q_BYTES);
+#pragma unroll
+      for (int cb = 0; cb < G::NBLK; ++cb)
+#pragma unroll
+        for (int hb = 0; hb < QB_WG / BOX; ++hb) {
+          const uint32_t off = cb * QB_WG * G::RB + hb * BOX * G::RB;
+          tma_load_4d(q_s + off, &tm_q, q_full, cb * G::RB / 2,
+                      q_first + hb * BOX, head, bi);
+          tma_load_4d(do_s + off, &tm_do, q_full, cb * G::RB / 2,
+                      q_first + hb * BOX, head, bi);
+        }
+      for (int i = 0; i < n; ++i) {
+        const int st = i % NST, k_first = (t_lo + i) * KS;
+        if (i >= NST) mbar_wait(empty(st), ((i - NST) / NST) & 1);
+        mbar_expect_tx(full(st), 2 * L::KV_BYTES);
+#pragma unroll
+        for (int cb = 0; cb < G::NBLK; ++cb) {
+          tma_load_4d(k_s(st) + cb * KS * G::RB, &tm_k, full(st),
+                      cb * G::RB / 2, k_first, kv_head, bi);
+          tma_load_4d(v_s(st) + cb * KS * G::RB, &tm_v, full(st),
+                      cb * G::RB / 2, k_first, kv_head, bi);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = tid / 128, t4 = lane % 4;
+    const int wq_lo = q_first + 64 * wg;           // this warpgroup's rows
+    const int qrow = wq_lo + 16 * (warp % 4) + lane / 4;   // and + 8
+    const float sl2 = p.scale * LOG2E;
+    // the rows' lse (exp2 domain; +inf past Sq) and D
+    const float* rs = rowstats + (size_t)bh * p.sq_pad;
+    const float l0 = rs[qrow], l1 = rs[qrow + 8];
+    const float d0 = rs[p.plane + qrow], d1 = rs[p.plane + qrow + 8];
+    float dq_acc[G::HDP / 2];
+#pragma unroll
+    for (int i = 0; i < G::HDP / 2; ++i) dq_acc[i] = 0.f;
+    float s[32], dp[32];
+    uint32_t da[4][4];
+
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % NST, k_first = (t_lo + i) * KS;
+      mbar_wait(full(st), (i / NST) & 1);
+      // S = Q K^T and dP = dO V^T: rows this warpgroup's queries, columns
+      // the tile's keys
+      wgmma_fence();
+      product_over_hd<HD>(s, q_s + wg * 64 * G::RB, QB_WG, k_s(st), KS);
+      product_over_hd<HD>(dp, do_s + wg * 64 * G::RB, QB_WG, v_s(st), KS);
+      wgmma_wait_1();
+      fence_regs<32>(s);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        s[j] = ex2(fmaf(s[j], sl2, (j % 4) < 2 ? -l0 : -l1));
+      const bool full_tile =
+          k_first + KS <= p.skv &&
+          (!p.causal || k_first + KS - 1 <= wq_lo) &&
+          (p.window <= 0 || k_first > wq_lo + 63 - p.window);
+      if (!full_tile) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int qpos = qrow + 8 * ((j % 4) / 2);
+          const int kpos = k_first + 8 * (j / 4) + 2 * t4 + (j % 2);
+          if (kpos >= p.skv || (p.causal && kpos > qpos) ||
+              (p.window > 0 && kpos <= qpos - p.window))
+            s[j] = 0.f;
+        }
+      }
+      wgmma_wait_0();
+      fence_regs<32>(dp);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        dp[j] = s[j] * (dp[j] - ((j % 4) < 2 ? d0 : d1));
+      to_a(da, dp);
+      // dQ += dS K
+      fence_regs<G::HDP / 2>(dq_acc);
+      wgmma_fence();
+      product_over_rows<HD>(dq_acc, da, k_s(st), KS);
+      wgmma_commit();
+      wgmma_wait_0();
+      fence_regs<G::HDP / 2>(dq_acc);
+      mbar_arrive(empty(st));
+    }
+    store_bf16<HD>(dq + bi * p.s[DQ][0] + head * p.s[DQ][1], p.s[DQ][2],
+                   qrow, p.sq, dq_acc, p.scale);
+  }
 }
 
 template <int HD>
-cudaError_t launch_tc(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      void* dq, void* dk, void* dv, int b, const BwdParams& p,
-                      cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const float* rowstats,
+                         float* part, int splits, void* dq, void* dk,
+                         void* dv, int b, const BwdParams& p,
+                         cudaStream_t stream) {
   using T = __nv_bfloat16;
-  const size_t bytes = TcSmem<HD>::BYTES;
-  auto dkdv = bwd_dkdv_tc_kernel<HD>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map<HD>(&mq, q, b, p.h, p.sq, p.s[Q][0], p.s[Q][1], p.s[Q][2],
+                    BOX) ||
+      !make_map<HD>(&mk, k, b, p.kvh, p.skv, p.s[K][0], p.s[K][1], p.s[K][2],
+                    BOX) ||
+      !make_map<HD>(&mv, v, b, p.kvh, p.skv, p.s[V][0], p.s[V][1], p.s[V][2],
+                    BOX) ||
+      !make_map<HD>(&mdo, dout, b, p.h, p.sq, p.s[DO][0], p.s[DO][1],
+                    p.s[DO][2], BOX))
+    return cudaErrorInvalidValue;
+
+  auto dkdv = bwd_dkdv_wgmma_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DkdvTiles<HD>::SMEM);
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3((p.skv + TC_ROWS - 1) / TC_ROWS, b * p.kvh), TC_THREADS, bytes,
-         stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                   static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-                   delta, static_cast<T*>(dk), static_cast<T*>(dv), p);
+  dkdv<<<dim3(b * p.kvh * splits, (p.skv + KT - 1) / KT), WG_THREADS,
+         DkdvTiles<HD>::SMEM, stream>>>(mq, mk, mv, mdo, rowstats, part,
+                                        splits, static_cast<T*>(dk),
+                                        static_cast<T*>(dv), p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto dqk = bwd_dq_tc_kernel<HD>;
+  if (splits > 1) {
+    const long long n4 = (long long)b * p.kvh * p.skv * (HD / 4);
+    const long long want = (n4 + NTHREADS - 1) / NTHREADS;
+    const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);
+    bwd_dkdv_reduce_kernel<HD><<<blocks, NTHREADS, 0, stream>>>(
+        part, static_cast<T*>(dk), static_cast<T*>(dv), splits, b * p.kvh,
+        p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  auto dqk = bwd_dq_wgmma_kernel<HD>;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
+                             DqTiles<HD>::SMEM);
   if (err != cudaSuccess) return err;
-  dqk<<<dim3((p.sq + TC_ROWS - 1) / TC_ROWS, b * p.h), TC_THREADS, bytes,
-        stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-                  delta, static_cast<T*>(dq), p);
+  dqk<<<dim3(b * p.h, (p.sq + QB_WG - 1) / QB_WG), WG_THREADS,
+        DqTiles<HD>::SMEM, stream>>>(mq, mk, mv, mdo, rowstats,
+                                     static_cast<T*>(dq), p);
   return cudaGetLastError();
 }
 
@@ -787,22 +1051,25 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, int b,
-                   const BwdParams& p, cudaStream_t stream) {
+                   float* rowstats, float* part, int splits, void* dq,
+                   void* dk, void* dv, int b, const BwdParams& p,
+                   cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  bwd_delta_kernel<T><<<dim3((p.sq + NTHREADS / 32 - 1) / (NTHREADS / 32),
-                             b * p.h),
-                        NTHREADS, 0, stream>>>(static_cast<const T*>(o), dot,
-                                               delta, HD, p);
+  constexpr int delta_rows = NTHREADS / (HD * (int)sizeof(T) / 16);
+  bwd_delta_kernel<T, HD>
+      <<<dim3((p.sq_pad + delta_rows - 1) / delta_rows, b * p.h), NTHREADS,
+          0, stream>>>(static_cast<const T*>(o), dot, lse, rowstats, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (std::is_same<T, __nv_bfloat16>::value && HD >= 64) {
-    return launch_tc<HD>(q, k, v, dout, lse, delta, dq, dk, dv, b, p,
-                         stream);
+    return launch_wgmma<HD>(q, k, v, dout, rowstats, part, splits, dq, dk,
+                            dv, b, p, stream);
   } else {
+    if (splits != 1) return cudaErrorInvalidValue;
+    const float* delta = rowstats + p.plane;
     auto dkdv = bwd_dkdv_kernel<T, HD>;
     err = cudaFuncSetAttribute(dkdv,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -829,14 +1096,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
-                        float* delta, void* dq, void* dk, void* dv, int b,
-                        const BwdParams& p, cudaStream_t s) {
+                        float* rowstats, float* part, int splits, void* dq,
+                        void* dk, void* dv, int b, const BwdParams& p,
+                        cudaStream_t s) {
   switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, p, s);
-    case 16: return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, p, s);
-    case 32: return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, p, s);
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, p, s);
-    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, p, s);
+    case 8: return launch<T, 8>(q, k, v, o, dout, lse, rowstats, part, splits, dq, dk, dv, b, p, s);
+    case 16: return launch<T, 16>(q, k, v, o, dout, lse, rowstats, part, splits, dq, dk, dv, b, p, s);
+    case 32: return launch<T, 32>(q, k, v, o, dout, lse, rowstats, part, splits, dq, dk, dv, b, p, s);
+    case 64: return launch<T, 64>(q, k, v, o, dout, lse, rowstats, part, splits, dq, dk, dv, b, p, s);
+    case 128: return launch<T, 128>(q, k, v, o, dout, lse, rowstats, part, splits, dq, dk, dv, b, p, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -846,18 +1114,22 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // q, out, dout, dq (B, H, Sq, hd); k, v, dk, dv (B, KVH, Skv, hd); each
 // addressed as base + b*s[0] + head*s[1] + pos*s[2] (elements; strides =
 // three each of q, k, v, out, dout, dq, dk, dv), hd contiguous.  lse
-// (B, H, Sq) fp32 from the forward; delta (B, H, Sq) fp32 scratch.  dtype:
-// 0 = float32, 1 = bfloat16 (all eight tensors alike).  window <= 0 means
-// no window.  Launches three kernels on `stream` and returns the first
-// CUDA error (0 on success).
+// (B, H, Sq) fp32 from the forward.  rowstats: (2, B*H, Sq_pad) fp32
+// scratch, Sq_pad = Sq rounded up to 128.  splits: the blocks that share
+// the query heads of one KV head in the dK/dV pass (1 but for bf16 at hd
+// 64 and 128, and at most H / KVH); part: (2, splits, B*KVH, Skv, hd) fp32
+// scratch where splits > 1, else null.  dtype: 0 = float32, 1 = bfloat16
+// (all eight tensors alike).  window <= 0 means no window.  Launches the
+// passes on `stream` and returns the first CUDA error (0 on success).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int b, int h, int kvh, int sq, int skv, int hd,
-    const long long* strides, int causal, int window, float scale,
-    int dtype, void* stream) {
+    const void* dout, const float* lse, float* rowstats, float* part,
+    void* dq, void* dk, void* dv, int b, int h, int kvh, int sq, int skv,
+    int hd, const long long* strides, int causal, int window, float scale,
+    int splits, int dtype, void* stream) {
   if (b <= 0 || sq <= 0 || skv <= 0 || h <= 0 || kvh <= 0 || h % kvh ||
-      (long long)b * h > 65535)
+      (long long)b * h > 65535 || splits < 1 || splits > h / kvh ||
+      (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.sq = sq;
@@ -867,14 +1139,17 @@ extern "C" int repro_flash_attention_bwd(
   p.causal = causal;
   p.window = window;
   p.scale = scale;
+  p.sq_pad = (sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
+  p.plane = (long long)b * h * p.sq_pad;
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) p.s[t][i] = strides[3 * t + i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_hd<float>(hd, q, k, v, o, dout, lse, delta, dq, dk,
-                                   dv, b, p, s);
+    return (int)dispatch_hd<float>(hd, q, k, v, o, dout, lse, rowstats, part,
+                                   splits, dq, dk, dv, b, p, s);
   if (dtype == 1)
-    return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, dout, lse, delta,
-                                           dq, dk, dv, b, p, s);
+    return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, dout, lse,
+                                           rowstats, part, splits, dq, dk,
+                                           dv, b, p, s);
   return (int)cudaErrorInvalidValue;
 }

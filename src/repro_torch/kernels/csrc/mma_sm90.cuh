@@ -1,5 +1,5 @@
-// Warp-level building blocks shared by the decode-attention, mLSTM and
-// attention-backward kernels: cp.async copies into shared memory,
+// Warp-level building blocks shared by the decode-attention and mLSTM
+// kernels: cp.async copies into shared memory,
 // ldmatrix, and the bf16 tensor-core product mma.sync.m16n8k16 with fp32
 // accumulation.
 //

@@ -39,12 +39,22 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_Y = 65535            # B*H rides the grid's y axis
 
 # the backward's kernels, by their symbols' names: each launch runs the
-# delta pass, then dK/dV and dQ on the tensor cores (bf16 at hd 64 and
-# 128) or on the CUDA cores (fp32, and bf16 at hd 8-32); ``bwd_passes``
-# names those of one launch
-BWD_TC = ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel", "bwd_delta_kernel")
+# delta pass, then dK/dV and dQ on wgmma (bf16 at hd 64 and 128; with the
+# reduction of the dK/dV partials where the query heads of a KV head are
+# split over blocks) or on the CUDA cores (fp32, and bf16 at hd 8-32);
+# ``bwd_passes`` names those of one launch, the pass that runs once in
+# every launch first
+BWD_TC = ("bwd_dq_wgmma_kernel", "bwd_dkdv_wgmma_kernel", "bwd_delta_kernel",
+          "bwd_dkdv_reduce_kernel")
 BWD_CC = ("bwd_dq_kernel", "bwd_dkdv_kernel", "bwd_delta_kernel")
-BWD_KERNELS = BWD_TC[:2] + BWD_CC
+BWD_KERNELS = BWD_TC[:2] + BWD_TC[3:] + BWD_CC
+# the wgmma dK/dV pass: keys a block; the H100's SMs, of which it wants
+# about two blocks each before it splits the query heads of a KV head
+DKDV_KEYS = 128
+SMS = 132
+# rows of the backward's rowstats scratch (lse and D) per (b, head): Sq
+# rounded up to this
+ROW_PAD = 128
 
 # launches of the forward kernel and of the backward (its three passes
 # count as one) since the last reset (``LAUNCHES = 0``, ``BWD_LAUNCHES = 0``)
@@ -70,23 +80,62 @@ def _entry():
     return _fn
 
 
+def _bwd_argtypes() -> list:
+    """q, k, v, out, dout, lse, the two scratch tensors, dq, dk, dv; the
+    sizes; the strides; causal, window, scale, splits, dtype; the
+    stream."""
+    return ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+            + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int] * 2 + [ctypes.c_float]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 def _bwd_entry():
     """The backward's C entry point, its argument types declared."""
     global _bwd_fn
     if _bwd_fn is None:
         fn = _build.load().repro_flash_attention_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                       + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
-                                               ctypes.c_void_p])
+        fn.argtypes = _bwd_argtypes()
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
 
 
-def bwd_passes(hd: int, dtype: torch.dtype) -> tuple:
-    """The kernels one backward launch runs at head dim ``hd``."""
-    return BWD_TC if dtype == torch.bfloat16 and hd >= 64 else BWD_CC
+def _wgmma_route(hd: int, dtype: torch.dtype) -> bool:
+    return dtype == torch.bfloat16 and hd >= 64
+
+
+def bwd_splits(b: int, kvh: int, skv: int, g: int) -> int:
+    """Over how many blocks the wgmma dK/dV pass splits the ``g`` query
+    heads of each KV head: 1 when its B·KVH·⌈Skv / 128⌉ blocks give the
+    card about two an SM, else the smallest divisor of ``g`` that does
+    (``g`` if none does)."""
+    blocks = b * kvh * -(-skv // DKDV_KEYS)
+    if blocks >= 2 * SMS:
+        return 1
+    want = -(-2 * SMS // blocks)
+    return min((d for d in range(want, g + 1) if g % d == 0), default=g)
+
+
+def bwd_passes(hd: int, dtype: torch.dtype, splits: int = 1) -> tuple:
+    """The kernels one backward launch runs at head dim ``hd`` with the
+    dK/dV pass's head ``splits`` (``bwd_splits``)."""
+    if not _wgmma_route(hd, dtype):
+        return BWD_CC
+    return BWD_TC if splits > 1 else BWD_TC[:3]
+
+
+def bwd_scratch_shapes(b: int, h: int, kvh: int, sq: int, skv: int, hd: int,
+                       dtype: torch.dtype) -> dict:
+    """The fp32 scratch one backward launch takes, name -> shape:
+    ``rowstats`` (each row's lse in the exp2 domain and D, rows padded to
+    ``ROW_PAD``) and, where the dK/dV pass splits the query heads of a KV
+    head, ``partial`` (each split's dK and dV), else None."""
+    splits = bwd_splits(b, kvh, skv, h // kvh) if _wgmma_route(hd, dtype) \
+        else 1
+    sq_pad = -(-sq // ROW_PAD) * ROW_PAD
+    return {"rowstats": (2, b * h, sq_pad),
+            "partial": (2, splits, b * kvh, skv, hd) if splits > 1 else None}
 
 
 def _check(q, k, v, num_heads: int, num_kv_heads: int,
@@ -199,13 +248,19 @@ def _launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, causal: bool,
                 window: Optional[int]) -> None:
     """Run the backward on (B, H, Sq, hd) q, out, dout, dq and (B, KVH,
     Skv, hd) k, v, dk, dv views (hd contiguous, rows 16-byte aligned) and
-    the forward's (B, H, Sq) lse; dq, dk, dv are written in place."""
+    the forward's (B, H, Sq) lse; dq, dk, dv are written in place.  The
+    scratch of ``bwd_scratch_shapes`` is allocated here and handed to the
+    kernel, which allocates nothing."""
     global BWD_LAUNCHES
     _check_launch(q, k, v, {"q": q, "k": k, "v": v, "out": out,
                             "dout": dout, "dq": dq, "dk": dk, "dv": dv})
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
-    delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    scratch = {name: None if shape is None else torch.empty(
+        shape, dtype=torch.float32, device=q.device)
+        for name, shape in bwd_scratch_shapes(b, h, kvh, sq, skv, hd,
+                                              q.dtype).items()}
+    partial = scratch["partial"]
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, out, dout, dq, dk, dv)
           for s in t.stride()[:3]))
@@ -213,10 +268,12 @@ def _launch_bwd(q, k, v, out, dout, lse, dq, dk, dv, causal: bool,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch["rowstats"].data_ptr(),
+            None if partial is None else partial.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, h, kvh, sq, skv, hd, strides,
             int(causal), -1 if window is None else window,
-            1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype], stream)
+            1.0 / math.sqrt(hd), 1 if partial is None else partial.shape[1],
+            _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
                            f"error {err}")

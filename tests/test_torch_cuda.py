@@ -203,6 +203,12 @@ def test_cuda_stage_server_defaults_to_the_card(card):
     # bound relative to the plain gradient cannot hold the kernel to
     (2, 70, 70, 4, 2, 8, True, 2),
     (2, 33, 77, 4, 2, 16, True, None),
+    # the wgmma route (bf16) at its edges: causal with Sq < Skv, a window
+    # narrower than S at hd 64, and G 48 at a length whose dK/dV pass
+    # splits the query heads over blocks
+    (2, 150, 260, 16, 8, 128, True, None),
+    (2, 300, 300, 16, 16, 64, True, 64),
+    (1, 260, 260, 48, 1, 128, True, None),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_attention_backward_matches_plain(card, b, sq, skv, h, kvh, hd,
@@ -228,6 +234,36 @@ def test_cuda_attention_backward_matches_plain(card, b, sq, skv, h, kvh, hd,
     for g, r in zip(got, ref):
         assert g.dtype == dtype and g.shape == r.shape
         assert (g.float() - r).abs().max() <= tol * r.abs().max()
+
+
+@pytest.mark.parametrize("b,s,h,kvh,splits", [(2, 2304, 16, 8, 1),
+                                              (1, 260, 48, 1, 48)])
+def test_cuda_attention_backward_runs_its_route(card, b, s, h, kvh, splits):
+    """One bf16 backward launch at hd 128 runs, each once, exactly the
+    kernels ``bwd_passes`` names: the wgmma passes, with the reduction of
+    the dK/dV partials where ``bwd_splits`` splits the query heads (G 48
+    at a short S) and without it where it does not (16/8 with 288 dK/dV
+    blocks)."""
+    hd = 128
+    q, dout = (torch.randn(b, s, h, hd, generator=card, device="cuda")
+               .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, s, kvh, hd, generator=card, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device="cuda")
+    fa._launch(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               out.transpose(1, 2), True, None, lse)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+
+    def backward():
+        fa._launch_bwd(*(t.transpose(1, 2) for t in (q, k, v, out, dout)),
+                       lse, *(t.transpose(1, 2) for t in grads), True, None)
+    backward()                                     # built, warm
+    torch.cuda.synchronize()
+    ran = sorted(_kernels_run(backward, fa.BWD_KERNELS))
+    assert fa.bwd_splits(b, kvh, s, h // kvh) == splits
+    assert ran == sorted(fa.bwd_passes(hd, torch.bfloat16, splits))
+    assert ("bwd_dkdv_reduce_kernel" in ran) == (splits > 1)
 
 
 def test_cuda_serving_writes_no_lse_and_launches_no_backward(card):
@@ -371,10 +407,33 @@ def test_cuda_mlstm_backward_matches_plain(card, bh, l, hd, dtype, state):
         assert err <= tol * scale if scale > 0 else err == 0, (i, err, scale)
 
 
+def _kernels_run(fn, names) -> list:
+    """Which of the kernels ``names`` (matched as substrings) one call of
+    ``fn`` launches, in launch order, by torch.profiler.  The call follows
+    256 spin kernels, as chip_smoke.py's profiles do: the profiler can lose
+    the first device records of a profile, so one that kept none of the
+    spins is taken again, up to three times."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(256):
+                torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == DeviceType.CUDA),
+                        key=lambda e: e.start_ns())
+        if any("spin_kernel" in e.name() for e in events):
+            break
+    return [next(n for n in names if n in e.name()) for e in events
+            if any(n in e.name() for n in names)]
+
+
 def test_cuda_mlstm_backward_runs_its_route(card):
     """One bf16 backward launch at hd 1024 runs, each once, exactly the
     kernels ``bwd_passes`` names (the tensor-core route), in that order."""
-    from torch.autograd import DeviceType
     bh, l, hd = 2, 256, 1024
     xs = _mlstm_chunk(card, bh, l, hd, torch.bfloat16, 0)
     carry = (torch.randn(bh, hd, hd, generator=card, device="cuda"),
@@ -386,17 +445,9 @@ def test_cuda_mlstm_backward_runs_its_route(card):
     h = mlstm_scan.mlstm_chunk_step(*xs, *carry)[0]
     mlstm_scan.mlstm_chunk_bwd(*xs, *carry, h, *ups)     # built, warm
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        mlstm_scan.mlstm_chunk_bwd(*xs, *carry, h, *ups)
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.profiler.kineto_results.events()
-                     if e.device_type() == DeviceType.CUDA
-                     and "mlstm_bwd_" in e.name()),
-                    key=lambda e: e.start_ns())
-    ran = [next(n for n in mlstm_scan.BWD_PASSES if n in e.name())
-           for e in events]
+    ran = _kernels_run(lambda: mlstm_scan.mlstm_chunk_bwd(*xs, *carry, h,
+                                                          *ups),
+                       mlstm_scan.BWD_PASSES)
     assert ran == list(mlstm_scan.bwd_passes(l, hd, torch.bfloat16))
     assert ran == list(mlstm_scan.BWD_TC)
 
