@@ -121,7 +121,15 @@ Phases, each printing one line per case:
      profiled one (wall and device ms, idle and attention's share), 8
      decode steps as in phase 7, the weight bytes and the peak memory;
      then ``examples/quickstart_torch.py --queries 4`` in a process of
-     its own (``quickstart``), which must exit 0;
+     its own (``quickstart``), which must exit 0, and every other entry
+     point a user calls, each in a process of its own on the card at
+     full width with small counts (``entry_points``): ``python -m
+     repro_torch.launch.serve --queries 8``, ``python -m
+     repro_torch.launch.train --full-config --steps 3`` with a checkpoint
+     this process restores onto the card, ``serve_pipeline_torch.py`` on
+     threads, on processes and its diamond (8 of 8 served each), and
+     ``train_small_torch.py`` for 4 steps, resumed to 6, whose last loss
+     must equal a straight run's; each must exit 0;
  10. training (run after phase 4, before the main path): the
      prefill-attention backward kernel against autograd through the
      plain version (``check_attention_bwd``: dq, dk, dv in fp32 and bf16
@@ -146,15 +154,19 @@ Phases, each printing one line per case:
      then ``forward_train``'s loss and every gradient at full width, two
      layers, fp32, through the kernels against the plain op
      (``train_grads``: qwen3-0.6b's attention, xlstm-1.3b's mLSTM chunk,
-     jamba's scan), ``make_train_step`` on qwen3-0.6b at
+     jamba's scan; starcoder2-3b's window at S 4096),
+     ``make_train_step`` on qwen3-0.6b at
      full width and depth, bf16, B 4, S 2048, remat on (a warm-up, 3
      timed steps, one profiled: 56 forward and 28 backward launches a
      step), on whisper-medium (B 2, S 448 over 1,500 frames, one
      step), on xlstm-1.3b at full width and depth (B 4, S 512: 2 timed
      steps and one profiled, 168 forward and 84 backward mLSTM launches a
-     step) and jamba's first two layers (B 1, S 2048, loss and gradients
-     without the AdamW update, which does not fit: 32 forward and 16
-     backward scan launches), and decode attention raising under grad
+     step), jamba's first two layers (B 1, S 2048: 32 forward and 16
+     backward scan launches), starcoder2-3b at full depth (B 2, S 4096:
+     60 and 30 attention launches) and qwen3-moe-30b-a3b's first 4 of 48
+     layers (B 4, S 2048: 8 and 4), each step's AdamW update in place
+     and its memory held to three fp32 copies of the largest leaf, and
+     decode attention raising under grad
      on the card, and attention whose last rows see no key refused under
      grad (``train_guards``);
  11. the control plane's anneal on the card (``SAConfig(mode="torch")``,
@@ -202,6 +214,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1768,32 +1781,170 @@ def zoo_phase(fa, dec, ops, Transformer, get_config, param_bytes) -> tuple:
     return prefills, decodes
 
 
+def run_command(phase: str, args: list, fields=None) -> dict:
+    """``python args`` in a process of its own from the repo's root, on
+    the card: emits one line with the command, its return code, seconds,
+    ``fields(stdout lines)`` and the tails of its stdout and stderr.  A
+    nonzero exit fails the run."""
+    root = Path(__file__).resolve().parent
+    gc_collect()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, *args], cwd=root, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=600)
+    lines = proc.stdout.splitlines()
+    row = {"phase": phase, "command": " ".join(["python", *args]),
+           "returncode": proc.returncode,
+           "seconds": time.perf_counter() - t0,
+           **(fields(lines) if fields else {}),
+           "stdout_tail": lines[-6:],
+           "stderr_tail": proc.stderr.splitlines()[-12:]}
+    emit(row)
+    if proc.returncode != 0:
+        raise AssertionError(f"{row['command']} exited {proc.returncode}")
+    return row
+
+
 def quickstart_phase() -> dict:
     """``examples/quickstart_torch.py --queries 4`` in a process of its own,
     at full width on the card (the Camelot loop through the facade on the
     text-to-text chain and the diamond, each min-resource allocation
     replayed live, then the multi-tenant solve); a nonzero exit fails the
     run."""
-    root = Path(__file__).resolve().parent
-    gc_collect()
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, str(root / "examples" / "quickstart_torch.py"),
-         "--queries", "4"], cwd=root, capture_output=True, text=True,
-        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=600)
-    lines = proc.stdout.splitlines()
-    row = {"phase": "quickstart", "returncode": proc.returncode,
-           "seconds": time.perf_counter() - t0,
-           "live_replays": [ln.strip() for ln in lines
-                            if "live replay" in ln],
-           "stdout_tail": lines[-6:],
-           "stderr_tail": proc.stderr.splitlines()[-12:]}
-    emit(row)
-    if proc.returncode != 0 or len(row["live_replays"]) != 2 \
+    row = run_command("quickstart", ["examples/quickstart_torch.py",
+                                     "--queries", "4"],
+                      fields=lambda lines: {"live_replays": [
+                          ln.strip() for ln in lines
+                          if "live replay" in ln]})
+    if len(row["live_replays"]) != 2 \
             or not all(ln.endswith("completed 4")
                        for ln in row["live_replays"]):
         raise AssertionError(f"quickstart_torch.py failed: {row}")
     return row
+
+
+ENTRY_QUERIES = 8
+
+
+def _completed(lines) -> dict:
+    return {"completed": [int(m) for ln in lines
+                          for m in re.findall(r"\| completed (\d+) \|", ln)]}
+
+
+def _last_loss(lines) -> dict:
+    losses = [ln.split()[3] for ln in lines
+              if ln.startswith("step ") and " loss " in ln]
+    return {"last_loss_line": next((ln for ln in reversed(lines)
+                                    if ln.startswith("step ")), None),
+            "last_loss": float(losses[-1]) if losses else None}
+
+
+def _check(ok: bool, row: dict, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"{row['command']}: {what}: {row}")
+
+
+def entry_points_phase(Transformer, get_config) -> dict:
+    """Each entry point a user calls, in a process of its own on the card
+    at full width with small counts (``run_command``): the serving
+    launcher; the training launcher, whose checkpoint this process
+    restores onto the card; ``serve_pipeline_torch.py`` on threads, on
+    processes and its diamond; ``train_small_torch.py`` for 4 steps with
+    a checkpoint every 2, resumed to 6, against a straight run of 6.
+    Checkpoints go to temporary directories, removed here."""
+    import tempfile
+    from repro_torch.training import CheckpointManager, init_adamw
+    t0 = time.perf_counter()
+    q = str(ENTRY_QUERIES)
+    out = {}
+    row = run_command("entry_serve", ["-m", "repro_torch.launch.serve",
+                                      "--queries", q],
+                      fields=lambda lines: {"served": [
+                          ln for ln in lines if ln.startswith("served ")]})
+    _check(any(ln.startswith(f"served {q} queries") for ln in row["served"]),
+           row, f"no 'served {q} queries' line")
+    with tempfile.TemporaryDirectory() as d:
+        row = run_command("entry_train", [
+            "-m", "repro_torch.launch.train", "--arch", "qwen3-0.6b",
+            "--full-config", "--steps", "3", "--ckpt-dir", d])
+        step_dir = Path(d) / "step_00000003"
+        files = sorted(f.name for f in step_dir.iterdir())
+        _check("done." in row["stdout_tail"]
+               and files == ["opt_state.pt", "params.pt"], row,
+               f"checkpoint files {files}")
+        model = Transformer(get_config("qwen3-0.6b"), device="cuda",
+                            dtype=torch.bfloat16, init=False)
+        like = model.state_dict()
+        opt_like = init_adamw(dict(model.named_parameters()))
+        params, opt = CheckpointManager(d).restore(3, like, opt_like)
+        pairs = [(params[k], like[k]) for k in like] + [
+            (t[k], ref[k]) for t, ref in ((opt.mu, opt_like.mu),
+                                          (opt.nu, opt_like.nu))
+            for k in ref]
+        bad = [tuple(t.shape) for t, ref in pairs
+               if t.shape != ref.shape or t.dtype != ref.dtype
+               or t.device != ref.device
+               or not bool(torch.isfinite(t).all())]
+        restored = {"phase": "entry_train_restore", "step": opt.step,
+                    "leaves": len(pairs), "bad_leaves": bad,
+                    "gb": sum(t.numel() * t.element_size()
+                              for t, _ in pairs) / 1e9,
+                    "device": str(pairs[0][0].device)}
+        emit(restored)
+        _check(not bad and opt.step == 3, row, f"restore {restored}")
+        del model, like, opt_like, params, opt, pairs
+        gc_collect()
+    for flags in (["--backend", "threads"], ["--backend", "processes"],
+                  ["--dag"]):
+        row = run_command("entry_serve_pipeline", [
+            "examples/serve_pipeline_torch.py", "--queries", q, *flags],
+            fields=_completed)
+        want = 1 if "--dag" in flags else 3        # host, device, auto
+        _check(row["completed"] == [ENTRY_QUERIES] * want, row,
+               f"completed {row['completed']}")
+    with tempfile.TemporaryDirectory() as d:
+        d1, d2 = str(Path(d) / "resumed"), str(Path(d) / "straight")
+        small = "examples/train_small_torch.py"
+        run_command("entry_train_small", [small, "--steps", "4",
+                                          "--ckpt-every", "2",
+                                          "--ckpt-dir", d1],
+                    fields=_last_loss)
+        resumed = run_command(
+            "entry_train_small", [small, "--steps", "6", "--resume",
+                                  "--ckpt-dir", d1],
+            fields=lambda lines: {**_last_loss(lines), "resumed": [
+                ln for ln in lines if ln.startswith("resumed from")]})
+        _check(resumed["resumed"] == ["resumed from step 4"], resumed,
+               "no 'resumed from step 4'")
+        straight = run_command("entry_train_small", [
+            small, "--steps", "6", "--ckpt-dir", d2], fields=_last_loss)
+        a, b = resumed["last_loss"], straight["last_loss"]
+        # the two runs' final parameters, against what the resumed run's
+        # two steps moved them from its checkpoint of step 4: a resume
+        # that lost the moments, the step count or the data's position
+        # is off by O(1) of that movement
+        p4, p1, p2 = (torch.load(Path(x) / f"step_{n:08d}" / "params.pt",
+                                 weights_only=True)["leaves"]
+                      for x, n in ((d1, 4), (d1, 6), (d2, 6)))
+        diff, moved = (math.sqrt(sum(float((x.float() - y.float()).square()
+                                           .sum()) for x, y in zip(u, v)))
+                       for u, v in ((p1, p2), (p2, p4)))
+        out["resume"] = {"phase": "entry_train_small_resume",
+                         "resumed_last_loss": a, "straight_last_loss": b,
+                         "rel_diff": abs(a - b) / abs(b),
+                         "tol": TRAIN_LOSS_REL_TOL,
+                         "params_rel_diff": diff / moved,
+                         "params_tol": TRAIN_GRAD_REL_TOL,
+                         "params_bit_equal": all(
+                             torch.equal(x, y) for x, y in zip(p1, p2))}
+        emit(out["resume"])
+        _check(out["resume"]["rel_diff"] <= TRAIN_LOSS_REL_TOL, resumed,
+               f"last loss {a} against the straight run's {b}")
+        _check(moved > 0 and diff / moved <= TRAIN_GRAD_REL_TOL, resumed,
+               f"final parameters {diff} apart, {moved} moved")
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "entry_points", "seconds": out["seconds"]})
+    return out
 
 
 def gc_collect() -> None:
@@ -3443,45 +3594,66 @@ def train_grads_phase(op: TrainOp, Transformer, cfg, b: int, s: int,
     return {"launches_fwd_bwd": launched}
 
 
-def grads_only_step(model):
-    """A step without the optimizer: the loss and every gradient through
-    ``forward_train`` (remat), as ``make_train_step`` takes them, and their
-    global norm; the parameters stay as they are."""
-    from repro_torch.training import batch_to
-    from repro_torch.training.optimizer import global_norm
-    params = [p for _, p in model.named_parameters()]
+def measured_update(step, opt, batch, peak_bytes_s: float):
+    """One ``make_train_step`` step whose AdamW update alone is measured:
+    the rise of the allocator's peak over what was allocated just before
+    it, its CUDA-event ms (the gradient norm included), the host's ms to
+    return from it before the device is waited on, and its bound, the
+    bytes the update must move (each gradient, parameter and moment read
+    once, each parameter and moment written once) at the card's rate.
+    Returns (opt, the measurement)."""
+    from repro_torch.training import train_step as ts
+    real, got = ts.adamw_update, {}
 
-    def step(opt, batch):
-        b = batch_to(batch, model.device)
-        model.requires_grad_(True)
-        try:
-            loss = model.forward_train(b["tokens"], b["labels"], remat=True)
-            grads = torch.autograd.grad(loss, params)
-        finally:
-            model.requires_grad_(False)
-        return opt, {"loss": loss.detach(), "lr": 0.0,
-                     "grad_norm": global_norm(dict(enumerate(grads)))}
-    return step
+    def update(grads, state, params, cfg):
+        moved = sum(p.numel() * (g.element_size() + 2 * p.element_size()
+                                 + 16) for g, p in zip(grads.values(),
+                                                       params.values()))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t0 = time.perf_counter()
+        out = real(grads, state, params, cfg)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[1].record()
+        torch.cuda.synchronize()
+        got.update({"peak_gb": (torch.cuda.max_memory_allocated()
+                                - base) / 1e9,
+                    "ms": ev[0].elapsed_time(ev[1]), "host_ms": host_ms,
+                    "bound_ms": moved / peak_bytes_s * 1e3})
+        return out
+    ts.adamw_update = update
+    try:
+        opt, _ = step(opt, batch)
+    finally:
+        ts.adamw_update = real
+    return opt, got
 
 
 def train_steps(op: TrainOp, model, batches, steps: int, label: str,
-                profile: bool, cut=None, optimizer: bool = True) -> dict:
-    """``make_train_step`` on ``model`` (bf16; without ``optimizer``, the
-    loss and gradients alone): one warm-up step, then ``steps`` timed ones
-    (``op``'s kernels' launches counted from 0 just before them), then,
-    with ``profile``, one profiled step.  Each batch is made on the host
-    before its step's clock starts."""
+                profile: bool, peak_bytes_s: float, expect=None,
+                **fields) -> dict:
+    """``make_train_step`` on ``model`` (bf16): one warm-up step, then
+    ``steps`` timed ones (``op``'s kernels' launches counted from 0 just
+    before them), then one more, then, with ``profile``, one profiled
+    step, which must record ``expect``'s launches besides the backward's.
+    The AdamW update of the warm-up step and of the one after the timed
+    steps is measured alone (``measured_update``): the line gives both
+    readings, the warm-up's first.  Each batch is made on the host before
+    its step's clock starts; ``fields`` join the line.  Raises if the
+    update's memory rose past three fp32 copies of the largest leaf in
+    either reading."""
     from repro_torch.training import (AdamWConfig, init_adamw,
                                       make_train_step)
     cfg = model.cfg
     first = batches(0)
-    if optimizer:
-        opt = init_adamw(dict(model.named_parameters()))
-        step = make_train_step(model, AdamWConfig(lr=1e-4, warmup_steps=2,
-                                                  total_steps=100))
-    else:
-        opt, step = None, grads_only_step(model)
-    opt, _ = step(opt, first)
+    params = list(model.parameters())
+    opt = init_adamw(dict(model.named_parameters()))
+    step = make_train_step(model, AdamWConfig(lr=1e-4, warmup_steps=2,
+                                              total_steps=100))
+    opt, warm = measured_update(step, opt, first, peak_bytes_s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     op.mod.LAUNCHES = op.mod.BWD_LAUNCHES = 0
@@ -3497,26 +3669,36 @@ def train_steps(op: TrainOp, model, batches, steps: int, label: str,
                          "lr": _finite(met["lr"])})
     launches = (op.mod.LAUNCHES, op.mod.BWD_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    opt, steady = measured_update(step, opt, batches(steps + 1),
+                                  peak_bytes_s)
+    readings = (warm, steady)
+    update = {f"update_{k}": [r[k] for r in readings]
+              for k in ("ms", "host_ms")}
+    update.update({
+        "update_peak_gb": max(r["peak_gb"] for r in readings),
+        "update_bound_ms": warm["bound_ms"],
+        "update_bound_gb": 3 * 4 * max(p.numel() for p in params) / 1e9,
+        # weights and their gradients in the model's dtypes, fp32 moments
+        "state_gb": sum(p.numel() * (2 * p.element_size() + 8)
+                        for p in params) / 1e9})
     b, s = first["tokens"].shape
     wall_ms = sorted(walls)[len(walls) // 2] * 1e3
     out = {"phase": "train_step", "model": cfg.name, "op": op.name,
            "layers": cfg.num_layers, "dtype": "bfloat16", "b": b, "s": s,
-           "remat": True, "optimizer": optimizer,
+           "remat": True, "params": sum(p.numel() for p in params),
            "steps": per_step, "wall_ms": [w * 1e3 for w in walls],
            "wall_ms_median": wall_ms, "tokens_per_s": b * s / wall_ms * 1e3,
            "launches_fwd_bwd": launches,
            "launches_fwd_bwd_per_step": [n / steps for n in launches],
-           "peak_memory_gb": peak_gb, "label": label}
-    if cut:
-        out["cut"] = cut
+           "peak_memory_gb": peak_gb, **update, "label": label, **fields}
     if profile:
-        batch = batches(steps + 1)
+        batch = batches(steps + 2)
 
         def one():
             nonlocal opt
             opt, _ = step(opt, batch)
         device_ms, kernels = device_profile(
-            one, expect={op.expect: launches[1] // steps})
+            one, expect={op.expect: launches[1] // steps, **(expect or {})})
         bwd_ms = sum(t for key, _, t in kernels
                      if any(n in key for n in op.bwd))
         fwd_ms = sum(t for key, _, t in kernels
@@ -3529,6 +3711,10 @@ def train_steps(op: TrainOp, model, batches, steps: int, label: str,
                     "device_launches": sum(n for _, n, _ in kernels),
                     "top_device_kernels": kernels[:6]})
     emit(out)
+    if update["update_peak_gb"] > update["update_bound_gb"]:
+        raise AssertionError(f"{label}: the AdamW update took "
+                             f"{update['update_peak_gb']} GB, past its "
+                             f"bound {update['update_bound_gb']} GB")
     del opt
     return out
 
@@ -3571,31 +3757,43 @@ def guards_phase(ops) -> list:
     return raised
 
 
+QWEN3 = "qwen3-0.6b"
 XLSTM = "xlstm-1.3b"
+STARCODER = "starcoder2-3b"
 JAMBA_TRAIN_LAYERS = 2       # a Mamba layer with a dense MLP, one with MoE
+QWEN_MOE_TRAIN_LAYERS = 4
 
 
-def train_phase(fa, ms, sm, ops, Transformer, get_config) -> dict:
+def train_phase(fa, ms, sm, ops, Transformer, get_config,
+                peak_bytes_s: float) -> dict:
     """Phase 10's training part: (a) gradients through the kernels held to
     the plain ops at full width and two layers in fp32: qwen3-0.6b
-    (attention), xlstm-1.3b (two mLSTM layers, B 2, S 512: two chunks a
-    layer) and jamba-v0.1-52b (two Mamba layers, the second with the
-    16-expert MoE, B 1, S 512); (b) qwen3-0.6b at full width and depth,
-    bf16, B 4, S 2048, remat: a warm-up and 3 timed steps, then one
-    profiled (the attention backward's path: its launches are the kernels
-    line's); (c) whisper-medium at full width, B 2, S 448 over 1,500
-    frames, one timed step and one profiled; (d) xlstm-1.3b at full width
-    and depth (42 mLSTM, 6 sLSTM layers), bf16, B 4, S 512: 2 timed steps
-    and one profiled (the mLSTM backward's path), and jamba's two layers
-    in bf16 at B 1, S 2048, the loss and gradients without the AdamW
-    update (which does not fit): one timed step and one profiled (the scan
-    backward's path); (e) the guards."""
+    (attention), starcoder2-3b (its window, B 1, S 4096), xlstm-1.3b (two
+    mLSTM layers, B 2, S 512: two chunks a layer) and jamba-v0.1-52b (two
+    Mamba layers, the second with the 16-expert MoE, B 1, S 512); (b)
+    qwen3-0.6b at full width and depth, bf16, B 4, S 2048, remat: a
+    warm-up and 3 timed steps, then one profiled (the attention backward's
+    path: its launches are the kernels line's); (c) whisper-medium at full
+    width, B 2, S 448 over 1,500 frames, one timed step and one profiled;
+    (d) xlstm-1.3b at full width and depth (42 mLSTM, 6 sLSTM layers),
+    bf16, B 4, S 512: 2 timed steps and one profiled (the mLSTM backward's
+    path), and jamba's two layers in bf16 at B 1, S 2048: one timed step
+    and one profiled (the scan backward's path); (e) starcoder2-3b at full
+    width and depth, B 2, S 4096 (its window's length): 2 timed steps and
+    one profiled, and qwen3-moe-30b-a3b at 4 of its 48 layers, B 4, S
+    2048 (the capacity dispatch over 128 experts at T·k = 65,536): one
+    timed step and one profiled; (f) the guards.  Every step, the
+    warm-up's included, updates the parameters and moments in place, the
+    update's memory measured against three fp32 copies of the largest
+    leaf (``train_steps``)."""
     from repro_torch.configs import MLSTM
+    from repro_torch.models import param_bytes
     from repro_torch.models.ssm import SSM_CHUNK
     from repro_torch.models.xlstm import MLSTM_CHUNK
     from repro_torch.training import DataConfig, make_batch
-    qcfg = get_config("qwen3-0.6b")
+    qcfg = get_config(QWEN3)
     xcfg = get_config(XLSTM)
+    scfg = get_config(STARCODER)
     jcfg = jamba_config(get_config, JAMBA_TRAIN_LAYERS)
     top = train_ops(fa, ms, sm, ops, qcfg.resolved_head_dim)
     attn, mlstm, ssm = top["attention"], top["mlstm"], top["ssm"]
@@ -3603,76 +3801,81 @@ def train_phase(fa, ms, sm, ops, Transformer, get_config) -> dict:
     # launches each forward kernel twice per layer (and chunk) and each
     # backward once
     grads = {
-        "qwen": train_grads_phase(
+        QWEN3: train_grads_phase(
             attn, Transformer, dataclasses.replace(qcfg, num_layers=2), 2,
             512, 41, (4, 2)),
+        STARCODER: train_grads_phase(
+            attn, Transformer, dataclasses.replace(scfg, num_layers=2), 1,
+            4096, 49, (4, 2)),
         XLSTM: train_grads_phase(
             mlstm, Transformer, dataclasses.replace(xcfg, num_layers=2), 2,
             512, 45, (2 * 2 * 2, 2 * 2)),
         JAMBA: train_grads_phase(
             ssm, Transformer, jcfg, 1, 512, 46, (2 * 2 * 2, 2 * 2))}
 
-    model = Transformer(qcfg, device="cuda", dtype=torch.bfloat16, seed=42)
-    dcfg = DataConfig(seq_len=2048, global_batch=4)
-    qwen = train_steps(attn, model, lambda i: make_batch(qcfg, dcfg, i), 3,
-                       "qwen3-0.6b full depth", profile=True)
-    expect = [2 * qcfg.num_layers, qcfg.num_layers]    # remat: 56 and 28
-    if qwen["launches_fwd_bwd_per_step"] != expect:
-        raise AssertionError(f"train launches "
-                             f"{qwen['launches_fwd_bwd_per_step']} != "
-                             f"{expect}")
-    del model
-    gc_collect()
+    def run(cfg, seed, b, s, steps, label, check, op=attn, **kw):
+        """``train_steps`` on ``cfg`` at full width in bf16; its launches a
+        step must be ``check``."""
+        model = Transformer(cfg, device="cuda", dtype=torch.bfloat16,
+                            seed=seed)
+        d = DataConfig(seq_len=s, global_batch=b)
+        out = train_steps(op, model, lambda i: make_batch(cfg, d, i), steps,
+                          label, True, peak_bytes_s, **kw)
+        if out["launches_fwd_bwd_per_step"] != check:
+            raise AssertionError(f"{label} train launches "
+                                 f"{out['launches_fwd_bwd_per_step']} != "
+                                 f"{check}")
+        del model
+        gc_collect()
+        return out
 
-    wcfg = get_config(WHISPER)
-    model = Transformer(wcfg, device="cuda", dtype=torch.bfloat16, seed=44)
-    wd = DataConfig(seq_len=448, global_batch=2)
-    whisper = train_steps(attn, model, lambda i: make_batch(wcfg, wd, i), 1,
-                          "whisper-medium", profile=True)
+    # remat: 56 and 28
+    qwen = run(qcfg, 42, 4, 2048, 3, "qwen3-0.6b full depth",
+               [2 * qcfg.num_layers, qcfg.num_layers])
     # encoder, self and cross attention per layer, each run twice (remat)
+    wcfg = get_config(WHISPER)
     layers = wcfg.num_encoder_layers + 2 * wcfg.num_layers
-    if whisper["launches_fwd_bwd_per_step"] != [2 * layers, layers]:
-        raise AssertionError(f"whisper train launches "
-                             f"{whisper['launches_fwd_bwd_per_step']}")
-    del model
-    gc_collect()
-
-    model = Transformer(xcfg, device="cuda", dtype=torch.bfloat16, seed=47)
-    xd = DataConfig(seq_len=512, global_batch=4)
-    xlstm = train_steps(mlstm, model, lambda i: make_batch(xcfg, xd, i), 2,
-                        "xlstm-1.3b full depth", profile=True)
+    whisper = run(wcfg, 44, 2, 448, 1, "whisper-medium",
+                  [2 * layers, layers])
     n_mlstm = sum(kind == MLSTM for kind in xcfg.block_pattern) \
         * xcfg.num_layers // len(xcfg.block_pattern)
     chunks = 512 // MLSTM_CHUNK
     # 2 * 42 * 2 = 168 forward and 84 backward launches a step
-    if xlstm["launches_fwd_bwd_per_step"] != [2 * n_mlstm * chunks,
-                                              n_mlstm * chunks]:
-        raise AssertionError(f"xlstm train launches "
-                             f"{xlstm['launches_fwd_bwd_per_step']}")
-    del model
-    gc_collect()
-
-    model = Transformer(jcfg, device="cuda", dtype=torch.bfloat16, seed=48)
-    jd = DataConfig(seq_len=2048, global_batch=1)
-    # the AdamW update is cut: its functional state (the old and the new
-    # fp32 moments, 4 x 15 GB for the two layers' 3.7 B parameters) does
-    # not fit beside their bf16 weights and gradients in 80 GB
-    jamba = train_steps(ssm, model, lambda i: make_batch(jcfg, jd, i), 1,
-                        "jamba-v0.1-52b, 2 layers", profile=True,
-                        cut=f"num_layers 32 -> {JAMBA_TRAIN_LAYERS}: the "
-                            f"first Mamba layer (dense MLP) and the second "
-                            f"(16-expert MoE), B 1; loss and gradients "
-                            f"without the AdamW update, whose old and new "
-                            f"fp32 moments (60 GB) do not fit beside them",
-                        optimizer=False)
+    xlstm = run(xcfg, 47, 4, 512, 2, "xlstm-1.3b full depth",
+                [2 * n_mlstm * chunks, n_mlstm * chunks], op=mlstm)
     chunks = 2048 // SSM_CHUNK
-    if jamba["launches_fwd_bwd_per_step"] != [2 * 2 * chunks, 2 * chunks]:
-        raise AssertionError(f"jamba train launches "
-                             f"{jamba['launches_fwd_bwd_per_step']}")
-    del model
-    gc_collect()
+    jamba = run(jcfg, 48, 1, 2048, 1, "jamba-v0.1-52b, 2 layers",
+                [2 * 2 * chunks, 2 * chunks], op=ssm,
+                cut=f"num_layers 32 -> {JAMBA_TRAIN_LAYERS}: the first "
+                    f"Mamba layer (dense MLP) and the second (16-expert "
+                    f"MoE), B 1")
+    # the dK/dV pass splits a KV head's query heads over blocks, whose
+    # partials a reduction pass sums: its launches are the backward's
+    def split(cfg, b, s):
+        splits = fa.bwd_splits(b, cfg.num_kv_heads, s,
+                               cfg.num_heads // cfg.num_kv_heads)
+        return {"expect": {fa.REDUCE: cfg.num_layers} if splits > 1
+                else None, "bwd_splits": splits}
+
+    starcoder = run(scfg, 50, 2, 4096, 2, "starcoder2-3b full depth",
+                    [2 * scfg.num_layers, scfg.num_layers],
+                    **split(scfg, 2, 4096))
+    mcfg = dataclasses.replace(get_config(QWEN_MOE),
+                               num_layers=QWEN_MOE_TRAIN_LAYERS)
+    n, full = (param_bytes(c, torch.bfloat16) / 2e9
+               for c in (mcfg, get_config(QWEN_MOE)))
+    moe = run(mcfg, 51, 4, 2048, 1,
+              f"qwen3-moe-30b-a3b, {QWEN_MOE_TRAIN_LAYERS} layers",
+              [2 * mcfg.num_layers, mcfg.num_layers], **split(mcfg, 4, 2048),
+              moe_pairs=4 * 2048 * mcfg.moe.top_k,
+              experts=mcfg.moe.num_experts,
+              cut=f"num_layers 48 -> {QWEN_MOE_TRAIN_LAYERS}: {n:.2f} B "
+                  f"parameters, whose weights, gradients and moments "
+                  f"({12 * n:.1f} GB) fit the card beside the step; 48 "
+                  f"layers' {full:.2f} B would take {12 * full:.0f} GB")
     return {"grads": grads, "qwen": qwen, "whisper": whisper,
-            "xlstm": xlstm, "jamba": jamba, "guards": guards_phase(ops)}
+            "xlstm": xlstm, "jamba": jamba, "starcoder2": starcoder,
+            "qwen3_moe": moe, "guards": guards_phase(ops)}
 
 
 def main() -> int:
@@ -3726,7 +3929,7 @@ def main() -> int:
     # training: the backward kernels' paths (each op's counts from 0 just
     # before its model's timed steps: qwen3-0.6b for attention, xlstm-1.3b
     # for the mLSTM chunk, jamba's two Mamba layers for the scan)
-    train = train_phase(fa, ms, sm, ops, Transformer, get_config)
+    train = train_phase(fa, ms, sm, ops, Transformer, get_config, peaks[1])
 
     # each path resets the counts just before it runs and reads them just
     # after: the full-width prefills, then the served chains (the main
@@ -3790,6 +3993,7 @@ def main() -> int:
         fa, dec, ops, Transformer, get_config, param_bytes)
     launches_decode.update(launches_zoo_decode)
     quickstart_phase()
+    entry_points_phase(Transformer, get_config)
     # the control plane's walk on the card, then launch's analyses
     anneal_phase()
     session_anneal_phase()
@@ -3842,6 +4046,9 @@ def main() -> int:
             launches_decode_prefills["flash_attention_bhsd"],
         "launches_train_qwen": train["qwen"]["launches_fwd_bwd"][0],
         "launches_train_whisper": train["whisper"]["launches_fwd_bwd"][0],
+        "launches_train_starcoder2":
+            train["starcoder2"]["launches_fwd_bwd"][0],
+        "launches_train_qwen3_moe": train["qwen3_moe"]["launches_fwd_bwd"][0],
         "max_abs_err": worst,
         "ms": main_row["ms"], "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -3858,6 +4065,12 @@ def main() -> int:
         "launches_note": "3 timed make_train_step steps of qwen3-0.6b, "
                          "full width and depth, B 4, S 2048",
         "launches_train_whisper": train["whisper"]["launches_fwd_bwd"][1],
+        "launches_train_starcoder2":
+            train["starcoder2"]["launches_fwd_bwd"][1],
+        "launches_train_qwen3_moe": train["qwen3_moe"]["launches_fwd_bwd"][1],
+        "launches_train_grads": {
+            k: train["grads"][k]["launches_fwd_bwd"][1]
+            for k in (QWEN3, STARCODER)},
         "launches_serve": serve_none["flash_attention_bwd"],
         "launches_processes": sum(
             processes_by["flash_attention_bwd"].values()),
@@ -3932,7 +4145,8 @@ def main() -> int:
         "launches": train["xlstm"]["launches_fwd_bwd"][1],
         "launches_note": "2 timed make_train_step steps of xlstm-1.3b, "
                          "full width and depth, B 4, S 512",
-        "launches_train_grads": train["grads"][XLSTM]["launches_fwd_bwd"][1],
+        "launches_train_grads": {
+            XLSTM: train["grads"][XLSTM]["launches_fwd_bwd"][1]},
         "launches_serve": serve_none["mlstm_chunk_bwd"],
         "launches_processes": sum(processes_by["mlstm_chunk_bwd"].values()),
         "routes": {"tensor cores (bf16 q, k, v, hd a multiple of 64)":
@@ -3956,7 +4170,8 @@ def main() -> int:
         "launches": train["jamba"]["launches_fwd_bwd"][1],
         "launches_note": "1 timed make_train_step step of jamba-v0.1-52b's "
                          "first two layers, full width, B 1, S 2048",
-        "launches_train_grads": train["grads"][JAMBA]["launches_fwd_bwd"][1],
+        "launches_train_grads": {
+            JAMBA: train["grads"][JAMBA]["launches_fwd_bwd"][1]},
         "launches_serve": serve_none["ssm_chunk_scan_bwd"],
         "launches_processes": sum(
             processes_by["ssm_chunk_scan_bwd"].values()),

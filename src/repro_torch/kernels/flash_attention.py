@@ -43,9 +43,10 @@ MAX_GRID_Y = 65535            # B*H rides the grid's y axis
 # reduction of the dK/dV partials where the query heads of a KV head are
 # split over blocks) or on the CUDA cores (fp32, and bf16 at hd 8-32);
 # ``bwd_passes`` names those of one launch, the pass that runs once in
-# every launch first
+# every launch first; ``REDUCE`` is that reduction
+REDUCE = "bwd_dkdv_reduce_kernel"
 BWD_TC = ("bwd_dq_wgmma_kernel", "bwd_dkdv_wgmma_kernel", "bwd_delta_kernel",
-          "bwd_dkdv_reduce_kernel")
+          REDUCE)
 BWD_CC = ("bwd_dq_kernel", "bwd_dkdv_kernel", "bwd_delta_kernel")
 BWD_KERNELS = BWD_TC[:2] + BWD_TC[3:] + BWD_CC
 # the wgmma dK/dV pass: keys a block; the H100's SMs, of which it wants

@@ -18,10 +18,10 @@ Per combo this writes a JSON record with the reference's keys:
     the reference's ``memory_analysis`` fields: ``argument_bytes`` = the
     local shards of the parameters, optimizer state and batch (or cache)
     held before the step; ``output_bytes`` = what the step returns (the
-    new parameters and optimizer state, the logits and new cache);
+    parameters and optimizer state, the logits and new cache);
     ``alias_bytes`` = outputs that are argument storage (the decode
-    cache, written in place; the train step makes new parameters where
-    the reference donates the old ones); ``temp_bytes`` = the peak above
+    cache, and the train step's parameters and moments, written in place
+    as the reference's donated ones); ``temp_bytes`` = the peak above
     arguments + outputs − alias; ``total_bytes`` their sum;
   - ``cost_analysis_raw``: FLOPs from ``FlopCounterMode`` over the step
     (per device: the local shards' products), bytes not counted;

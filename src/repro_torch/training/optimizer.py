@@ -1,5 +1,6 @@
-"""AdamW, functional, on a dict of named tensors (the port of
-``repro/training/optimizer.py``).
+"""AdamW on a dict of named tensors, updated in place (the port of
+``repro/training/optimizer.py``, whose jitted step donates its parameters
+and moments, so XLA writes the new values over the old).
 
 State: fp32 first and second moments per leaf and the step count.
 Global-norm gradient clipping, a cosine learning-rate schedule with linear
@@ -71,9 +72,11 @@ def schedule(step: int, cfg: AdamWConfig) -> float:
 
 def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (a 0-d tensor on
-    the leaves' device)."""
-    return torch.sqrt(sum(x.float().square().sum()
-                          for x in tensors.values()))
+    the leaves' device).  Each leaf's norm is reduced in fp32 without an
+    fp32 copy of the leaf."""
+    return torch.sqrt(sum(
+        torch.linalg.vector_norm(x, dtype=torch.float32).square()
+        for x in tensors.values()))
 
 
 def decays(p: torch.Tensor) -> bool:
@@ -83,11 +86,18 @@ def decays(p: torch.Tensor) -> bool:
     return p.dim() >= 2
 
 
-def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
+def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
                  params: Mapping[str, torch.Tensor], cfg: AdamWConfig
                  ) -> Tuple[Tensors, AdamWState, dict]:
-    """Returns (new params, new state, {"grad_norm", "lr"}).  Nothing is
-    updated in place: the new params and moments are new tensors."""
+    """Updates ``params`` and the moments of ``state`` in place and returns
+    (the same params, ``AdamWState(step + 1)`` holding the same moment
+    tensors, {"grad_norm", "lr"}).  ``grads`` is consumed: each leaf's
+    gradient is popped once its leaf is done, so its memory can go back.
+
+    Leaf by leaf, in fp32, through two scratch tensors the size of the
+    leaf (the update's transient memory: two fp32 copies of the largest
+    leaf), with the reference's elementary operations in its order, each
+    rounded to fp32 as the functional form rounds it."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
@@ -96,16 +106,33 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = float(1 - _f32(b1) ** step)
     bc2 = float(1 - _f32(b2) ** step)
-    new_p, new_m, new_v = {}, {}, {}
-    for n, g in grads.items():
-        p = params[n]
-        g = g.float() * scale
-        m2 = b1 * state.mu[n] + (1 - b1) * g
-        v2 = b2 * state.nu[n] + (1 - b2) * g.square()
-        delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + cfg.eps)
-        if decays(p):
-            delta = delta + cfg.weight_decay * p.float()
-        new_p[n] = (p.float() - lr * delta).to(p.dtype)
-        new_m[n], new_v[n] = m2, v2
-    return new_p, AdamWState(step=step, mu=new_m, nu=new_v), {
+    with torch.no_grad():
+        for n in list(grads):
+            p, m, v = params[n], state.mu[n], state.nu[n]
+            a = torch.empty_like(p, dtype=torch.float32)
+            b = torch.empty_like(a)
+            a.copy_(grads.pop(n))
+            a.mul_(scale)                   # g = g scale
+            m.mul_(b1)
+            torch.mul(a, 1 - b1, out=b)
+            m.add_(b)                       # m = b1 m + (1 - b1) g
+            v.mul_(b2)
+            torch.square(a, out=b)
+            b.mul_(1 - b2)
+            v.add_(b)                       # v = b2 v + (1 - b2) g^2
+            torch.div(v, bc2, out=b)
+            b.sqrt_()
+            b.add_(cfg.eps)
+            torch.div(m, bc1, out=a)
+            a.div_(b)                       # delta = m^ / (sqrt(v^) + eps)
+            if decays(p):
+                b.copy_(p)
+                b.mul_(cfg.weight_decay)
+                a.add_(b)                   # delta = delta + wd p
+            a.mul_(lr)
+            b.copy_(p)
+            b.sub_(a)                       # p - lr delta, cast back below
+            p.copy_(b)
+            del a, b        # freed before the next leaf's are allocated
+    return dict(params), AdamWState(step=step, mu=state.mu, nu=state.nu), {
         "grad_norm": gnorm, "lr": lr}

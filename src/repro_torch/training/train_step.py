@@ -4,8 +4,9 @@
 The reference's step is a pure function of (params, opt_state, batch);
 here the parameters live in the model, so the step takes (opt_state,
 batch), computes the loss with its gradients (the parameters require
-grad only for the call), and copies AdamW's new values into the model's
-parameters in place."""
+grad only for the call), and AdamW writes the new values over the
+model's parameters and the old moments, as the reference's donated step
+lets XLA do."""
 from __future__ import annotations
 
 from typing import Callable, Mapping, Tuple
@@ -29,12 +30,13 @@ def make_train_step(model: Transformer,
                     ) -> Callable[[AdamWState, Mapping], Tuple[AdamWState,
                                                                 dict]]:
     """Returns ``train_step(opt_state, batch) -> (opt_state, metrics)``;
-    the model's parameters are updated in place.  ``metrics``: ``loss``
+    the model's parameters and the state's moments are updated in place
+    (the returned state holds the same moment tensors).  ``metrics``: ``loss``
     and ``grad_norm`` (0-d tensors on the model's device, so a step does
     not wait for the card) and ``lr`` (a float).  The optimizer state
     comes from ``init_adamw(dict(model.named_parameters()))``."""
-    names = [n for n, _ in model.named_parameters()]
-    params = [p for _, p in model.named_parameters()]
+    named = dict(model.named_parameters())
+    names, params = list(named), list(named.values())
 
     def train_step(opt_state: AdamWState, batch: Mapping):
         b = batch_to(batch, model.device)
@@ -43,16 +45,11 @@ def make_train_step(model: Transformer,
         try:
             loss = model.forward_train(b["tokens"], b["labels"],
                                        b.get("frames"), remat=remat)
-            grads = torch.autograd.grad(loss, params)
+            grads = dict(zip(names, torch.autograd.grad(loss, params)))
         finally:
             for p in params:
                 p.requires_grad_(False)
-        new, opt_state, stats = adamw_update(
-            dict(zip(names, grads)), opt_state,
-            dict(zip(names, params)), opt_cfg)
-        with torch.no_grad():
-            for n, p in zip(names, params):
-                p.copy_(new[n])
+        _, opt_state, stats = adamw_update(grads, opt_state, named, opt_cfg)
         return opt_state, {"loss": loss.detach(), **stats}
 
     return train_step

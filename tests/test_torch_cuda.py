@@ -511,6 +511,46 @@ def test_cuda_train_step_runs_the_kernels(card):
     assert fa.BWD_LAUNCHES - bwd == 2 * cfg.num_layers
 
 
+def test_cuda_adamw_update_stays_within_its_bound(card, monkeypatch):
+    """Reduced qwen3-0.6b in bf16 on the card: two train steps write over
+    the parameters and moments they were given (each keeps its storage),
+    and the AdamW update alone raises the allocator's peak by at most
+    three fp32 copies of the largest leaf."""
+    from repro_torch.models import Transformer
+    from repro_torch.training import (AdamWConfig, DataConfig, init_adamw,
+                                      make_batch, make_train_step)
+    from repro_torch.training import train_step as ts
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    model = Transformer(cfg, seed=0)
+    named = dict(model.named_parameters())
+    opt = init_adamw(named)
+
+    def storage(opt):
+        return [t.data_ptr() for t in (*named.values(), *opt.mu.values(),
+                                       *opt.nu.values())]
+    ptrs = storage(opt)
+    real, rises = ts.adamw_update, []
+
+    def update(*args):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = real(*args)
+        torch.cuda.synchronize()
+        rises.append(torch.cuda.max_memory_allocated() - base)
+        return out
+    monkeypatch.setattr(ts, "adamw_update", update)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1))
+    before = {n: p.clone() for n, p in named.items()}
+    for i in range(2):
+        opt, m = step(opt, make_batch(cfg, DataConfig(64, 2), i))
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert storage(opt) == ptrs
+    assert any(not torch.equal(p, before[n]) for n, p in named.items())
+    bound = 3 * 4 * max(p.numel() for p in named.values())
+    assert len(rises) == 2 and 0 < max(rises) <= bound, (rises, bound)
+
+
 def _mlstm_chunk(gen, bh, l, hd, dtype, pad=0):
     """q, k (pre-scaled), v in ``dtype`` and fp32 gates, as the model
     makes them; the last ``pad`` steps carry its padding."""

@@ -97,6 +97,68 @@ def test_adamw_update_matches_reference(dtype, clip_norm, weight_decay):
                                        rtol=1e-5, atol=1e-7)
 
 
+def _functional_adamw(grads, state, params, cfg, scale):
+    """The update as the port wrote it before it worked in place: new
+    parameters and moments, the same elementary operations in the same
+    order, given the clip ``scale``."""
+    step = state.step + 1
+    lr = schedule(step, cfg)
+    b1, b2 = cfg.beta1, cfg.beta2
+    bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** step)
+    bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** step)
+    new_p, new_m, new_v = {}, {}, {}
+    for n, g in grads.items():
+        p = params[n]
+        g = g.float() * scale
+        m2 = b1 * state.mu[n] + (1 - b1) * g
+        v2 = b2 * state.nu[n] + (1 - b2) * g.square()
+        delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + cfg.eps)
+        if p.dim() >= 2:
+            delta = delta + cfg.weight_decay * p.float()
+        new_p[n] = (p.float() - lr * delta).to(p.dtype)
+        new_m[n], new_v[n] = m2, v2
+    return new_p, AdamWState(step=step, mu=new_m, nu=new_v)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("clip_norm", [1e3, 0.5], ids=["no_clip", "clip"])
+def test_adamw_update_is_in_place(dtype, clip_norm):
+    """Three updates write over the parameters and moments they are given
+    (the same tensors, the same storage, returned again) and the values
+    are bit for bit those of the functional form on the same inputs and
+    clip scale."""
+    rng = np.random.default_rng(1)
+    params = {k: v.clone() for k, v in _port_tree(_leaves(rng, dtype)).items()}
+    cfg = AdamWConfig(lr=1e-2, weight_decay=0.1, clip_norm=clip_norm,
+                      warmup_steps=2, total_steps=10)
+    opt = init_adamw(params)
+    ptrs = {k: (params[k].data_ptr(), opt.mu[k].data_ptr(),
+                opt.nu[k].data_ptr()) for k in params}
+    want_p = {k: v.clone() for k, v in params.items()}
+    want = AdamWState(0, {k: v.clone() for k, v in opt.mu.items()},
+                      {k: v.clone() for k, v in opt.nu.items()})
+    for _ in range(3):
+        grads = {k: torch.from_numpy((rng.standard_normal(v.shape) * 3)
+                                     .astype(np.float32)).to(v.dtype)
+                 for k, v in params.items()}
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(global_norm(grads),
+                                                        min=1e-9), max=1.0)
+        want_p, want = _functional_adamw(grads, want, want_p, cfg, scale)
+        got_p, got, _ = adamw_update(dict(grads), opt, params, cfg)
+        assert got.step == want.step
+        for k in params:
+            assert got_p[k] is params[k]
+            assert got.mu[k] is opt.mu[k] and got.nu[k] is opt.nu[k]
+            assert (params[k].data_ptr(), opt.mu[k].data_ptr(),
+                    opt.nu[k].data_ptr()) == ptrs[k]
+            assert params[k].dtype == want_p[k].dtype
+            assert torch.equal(params[k], want_p[k]), k
+            assert torch.equal(opt.mu[k], want.mu[k]), k
+            assert torch.equal(opt.nu[k], want.nu[k]), k
+        opt = got
+
+
 @pytest.mark.parametrize("step", [0, 1, 5, 10, 37, 100, 150])
 def test_schedule_matches_reference(step):
     cfg = dict(lr=3e-3, warmup_steps=10, total_steps=100, min_lr_frac=0.1)
