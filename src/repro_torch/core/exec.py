@@ -1,7 +1,10 @@
 """Unified pipeline-execution core (paper §VI–§VII), generalised to DAGs.
 
-The port's copy of the reference's ``repro/core/exec.py``, unchanged apart
-from its imports.  One scheduling state machine for two execution worlds:
+The port's copy of the reference's ``repro/core/exec.py``, apart from its
+imports: its instances keep no dispatch count or busy time, which nothing
+read (the engine's tracer times the calls), and a ``ReadyBatch`` carries
+the host stamp at which the live engine queued it, when it traces.  One
+scheduling state machine for two execution worlds:
 
   * the **live serving engine** (``repro_torch.serving.engine``) drives it
     with the wall clock and a thread pool of real model calls on the card,
@@ -94,8 +97,6 @@ class StageInstance:
     quota: float
     busy: bool = False
     bandwidth: float = 0.0
-    dispatches: int = 0
-    busy_time: float = 0.0
     gen: int = 0      # placement generation — stale releases are no-ops
     tbl: Optional[tuple] = None   # fast-path (dur, bw, len) physics table
     dead: bool = False            # device failed — never dispatch again
@@ -108,13 +109,15 @@ class ReadyBatch:
     timestamps in the simulator); ``data`` is the node input (live: a
     jax.Array).  ``bid`` identifies the admission-time batch across
     branches; ``inputs`` maps predecessor node -> branch payload for
-    batches produced by a fan-in join."""
+    batches produced by a fan-in join.  ``ready_ns``: the tracer's stamp
+    of its entering this ready queue (set by a tracing live engine)."""
     stage: int
     items: List[Any]
     ready_time: float
     data: Any = None
     bid: int = -1
     inputs: Optional[Dict[int, Any]] = None
+    ready_ns: int = 0
 
 
 @dataclass
@@ -379,7 +382,6 @@ class ExecCore:
                 inst = insts[heappop(free)]
                 rb = q.popleft()
                 inst.busy = True
-                inst.dispatches += 1
                 out.append((inst, rb))
             return out
         while q:
@@ -388,7 +390,6 @@ class ExecCore:
                 break
             rb = q.popleft()
             inst.busy = True
-            inst.dispatches += 1
             out.append((inst, rb))
         return out
 
@@ -401,10 +402,9 @@ class ExecCore:
             out.extend(self.dispatch_stage(si, now))
         return out
 
-    def release(self, inst: StageInstance, busy_for: float = 0.0) -> None:
+    def release(self, inst: StageInstance) -> None:
         inst.busy = False
         inst.bandwidth = 0.0
-        inst.busy_time += busy_for
         # Return to the free-list only for live, current-generation
         # instances: after ``reset_instances`` an in-flight release refers
         # to the old pool, and the legacy scan never sees it either; a dead
@@ -451,9 +451,6 @@ class ExecCore:
         return bool(self.pending) or any(self.ready) or \
             bool(self._joins) or \
             any(i.busy for st in self.stage_instances for i in st)
-
-    def queue_depths(self) -> List[int]:
-        return [len(q) for q in self.ready]
 
 
 def default_allocation(topology: Union[int, ServiceGraph], batch: int,

@@ -32,6 +32,16 @@ Two execution backends share this driver (``backend=``):
     driver; a crashed worker process is detected, restarted, and its
     in-flight batches replayed within the retry budget.
 
+Tracing (``trace=True``, off by default) records the spans of a served
+query's life on ``repro_torch.core.trace``'s tracer, stamped where each
+happens.  The processes backend records all of them: the driver loop's
+``admit``, ``batch_wait``, ``queue``, ``from_worker`` and ``done`` go on
+each run's ``ServeStats.spans``, the workers' ``to_worker``, ``resolve``,
+``enqueue``, ``sync`` and ``publish`` (and the ``launches_per_call``
+counter) come back in ``worker_reports``, and ``trace.link`` joins the
+two.  The threads backend records the driver's ``admit``, ``batch_wait``,
+``queue`` (to the pool's submit) and ``done``.
+
 Retry backoff is driver-scheduled on both backends: a failing batch is
 requeued with a timed wake (``retry_backoff × 2^attempt``) instead of
 sleeping inside a worker slot, so a backing-off batch never idles an
@@ -54,6 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig, get_config
+from repro_torch.core import trace as tracing
 from repro_torch.core.comm import (GLOBAL_MEMORY, HOST_STAGED, CommModel,
                                    EdgeChannel)
 from repro_torch.core.exec import (BatchingPolicy, ExecCore, ReadyBatch,
@@ -123,7 +134,13 @@ class ModelStageServer:
                       dtype=self.dtype, params=self._params)))
 
     def _run(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The ids of one call.  Under the process's tracer, when it is on,
+        the host's dispatch of the call (up to the recorded event) is its
+        ``enqueue`` span and the wait on the card its ``sync``."""
         cfg = self.cfg
+        tr = tracing.PROCESS
+        if tr.on:
+            t0 = tr.now()
         with torch.inference_mode():
             # an encoder-decoder stage scores the tokens against zero
             # frames (the stubbed front end), as the reference's stage
@@ -133,11 +150,18 @@ class ModelStageServer:
                 if cfg.encoder_decoder else None
             logits, _ = self.model.serve_prefill(tokens, frames=frames)
             out = torch.argmax(logits, dim=-1).to(torch.int32)
+            done = None
             if out.is_cuda:
                 # wait for this stage's own work only (releases the GIL)
                 done = torch.cuda.Event()
                 done.record()
+            if tr.on:
+                t1 = tr.now()
+                tr.span("enqueue", t0, t1)
+            if done is not None:
                 done.synchronize()
+            if tr.on:
+                tr.span("sync", t1, tr.now())
         return out
 
     def warmup(self, batch: int):
@@ -184,6 +208,7 @@ class ServeStats:
                                        # past the retry budget, deadline
                                        # abandonment)
     retries: int = 0                   # retry attempts scheduled
+    spans: List = field(default_factory=list)  # the driver's, traced
 
     def summary(self) -> dict:
         return {
@@ -228,7 +253,8 @@ class PipelineEngine:
     the mechanism for A/B comparisons.  ``max_retries``/``retry_backoff``/
     ``deadline`` are the fault knobs, ``backend``/``start_method``/
     ``shm_slots``/``shm_slot_bytes``/``supervise_timeout`` the
-    execution-backend knobs — see ``MultiTenantEngine``.
+    execution-backend knobs and ``trace`` the tracer's switch — see
+    ``MultiTenantEngine``.
     """
 
     def __init__(self, stages: Sequence, comm_mechanism: str = "auto",
@@ -241,7 +267,7 @@ class PipelineEngine:
                  deadline: Optional[float] = None,
                  backend: str = "threads", start_method: str = "spawn",
                  shm_slots: int = 32, shm_slot_bytes: int = 1 << 20,
-                 supervise_timeout: float = 5.0):
+                 supervise_timeout: float = 5.0, trace: bool = False):
         self.stages = list(stages)
         if graph is None:
             graph = ServiceGraph.chain(
@@ -263,7 +289,7 @@ class PipelineEngine:
             max_retries=max_retries, retry_backoff=retry_backoff,
             deadline=deadline, backend=backend, start_method=start_method,
             shm_slots=shm_slots, shm_slot_bytes=shm_slot_bytes,
-            supervise_timeout=supervise_timeout)
+            supervise_timeout=supervise_timeout, trace=trace)
         self.channels = self._inner.tenants[0].channels
 
     @property
@@ -462,9 +488,12 @@ class MultiTenantEngine:
       (a process that DIED is restarted as soon as it is seen);
       ``worker_restarts`` counts the restarts.
 
+    ``trace`` turns the tracer on (see the module docstring): each run's
+    ``ServeStats.spans`` holds the driver's spans of that tenant.
+
     ``close()`` shuts the pool down and keeps the workers' exit reports
-    (their stage servers' ``calls`` and kernels' ``LAUNCHES``) in
-    ``worker_reports``, by worker.
+    (their stage servers' ``calls``, kernels' ``LAUNCHES`` and, traced,
+    their ``spans`` and ``counters``) in ``worker_reports``, by worker.
     """
 
     def __init__(self, tenant_stages: Sequence[Sequence],
@@ -477,7 +506,7 @@ class MultiTenantEngine:
                  deadline: Optional[float] = None,
                  backend: str = "threads", start_method: str = "spawn",
                  shm_slots: int = 32, shm_slot_bytes: int = 1 << 20,
-                 supervise_timeout: float = 5.0):
+                 supervise_timeout: float = 5.0, trace: bool = False):
         if backend not in ("threads", "processes"):
             raise ValueError(f"unknown backend {backend!r}")
         if comm_mechanism not in ("auto", "device", "host"):
@@ -520,6 +549,14 @@ class MultiTenantEngine:
         self.worker_reports: Dict[int, dict] = {}
         self._pool: Optional[WorkerPool] = None
         self._supervisor: Optional[WorkerSupervisor] = None
+        self.tracer = tracing.Tracer(on=trace)
+        # a run's time 0 on the tracer's clock, and the admission stamps of
+        # its queries not yet batched (``_start_spans``)
+        self._due0_ns = 0
+        self._admitted: Dict[Tuple[int, int], int] = {}
+        # task ids, unique over the engine's life: a worker's spans of
+        # every trace come back together
+        self._fid_gen = count()
 
     def close(self) -> None:
         """Shut down the worker-process pool (processes backend), keeping
@@ -592,6 +629,7 @@ class MultiTenantEngine:
         in_flight = 0
         idx = [0] * len(self.tenants)
         lens = [len(tr) for tr in traces]
+        tracer = self._start_spans()
         start = time.perf_counter()
         total_inst = sum(len(c.instances) for c in cores)
         with ThreadPoolExecutor(max_workers=max(total_inst, 1)) as ex:
@@ -602,25 +640,18 @@ class MultiTenantEngine:
                 self._requeue_due(retry, cores, now)
                 for ti, (t, core, tr) in enumerate(
                         zip(self.tenants, cores, traces)):
-                    while idx[ti] < lens[ti] and \
-                            tr[idx[ti]].arrival <= now:
-                        core.admit(tr[idx[ti]], tr[idx[ti]].arrival)
-                        idx[ti] += 1
-                    if self.deadline is not None and core.pending:
-                        # per-query deadline: abandon arrivals that have
-                        # already waited past it instead of batching them
-                        keep = [(a, q) for a, q in core.pending
-                                if now - a <= self.deadline]
-                        n_drop = len(core.pending) - len(keep)
-                        if n_drop:
-                            core.pending = keep
-                            stats[ti].failed += n_drop
-                    for rb in core.form_batches(now):
+                    idx[ti], formed = self._admit_due(ti, core, tr, idx[ti],
+                                                      now, stats[ti])
+                    for rb in formed:
                         rb.data = _stack_tokens(
                             [q.tokens for q in rb.items], t.batch_size,
                             t.stages[rb.stage].device)
                     for inst, rb in core.dispatch(now):
                         in_flight += 1
+                        if tracer.on:
+                            tracer.span("queue", rb.ready_ns, tracer.now(),
+                                        {"ti": ti, "stage": rb.stage,
+                                         "bid": rb.bid})
                         ex.submit(self._worker, ti, inst, rb, completions,
                                   retry.take(ti, rb))
                 # sleep until the next event across ALL tenants
@@ -645,7 +676,68 @@ class MultiTenantEngine:
                         ev = completions.get_nowait()
                     except queue.Empty:
                         break
+        self._hand_out_spans(stats)
         return stats
+
+    # ---- tracing --------------------------------------------------------
+
+    def _start_spans(self) -> tracing.Tracer:
+        """Reset the run's tracing state; its time 0 is read before the
+        run's clock starts, so no query is admitted before it is due."""
+        tracer = self.tracer
+        self._due0_ns = tracer.now() if tracer.on else 0
+        self._admitted = {}
+        return tracer
+
+    def _due_ns(self, q: Query) -> int:
+        return self._due0_ns + round(q.arrival * 1e9)
+
+    def _hand_out_spans(self, stats: List[ServeStats]) -> None:
+        """Each tenant's driver spans of the run onto its ``ServeStats``."""
+        if self.tracer.on:
+            for s in self.tracer.take()["spans"]:
+                stats[s[3]["ti"]].spans.append(s)
+
+    def _admit_due(self, ti: int, core: ExecCore, trace: List[Query],
+                   i: int, now: float, stats: ServeStats
+                   ) -> Tuple[int, List[ReadyBatch]]:
+        """Admit tenant ``ti``'s queries of ``trace`` due by ``now`` (from
+        index ``i``), abandon those that waited past the deadline, and form
+        batches: (the next index, the newly formed batches).  Traced, each
+        admitted query gets its ``admit`` span, each formed batch its ready
+        stamp and each of its queries a ``batch_wait`` span."""
+        tracer = self.tracer
+        n = len(trace)
+        if i < n and trace[i].arrival <= now:
+            t = tracer.now() if tracer.on else 0
+            while i < n and trace[i].arrival <= now:
+                q = trace[i]
+                core.admit(q, q.arrival)
+                if tracer.on:
+                    self._admitted[(ti, q.qid)] = t
+                    tracer.span("admit", self._due_ns(q), t,
+                                {"ti": ti, "qid": q.qid})
+                i += 1
+        if self.deadline is not None and core.pending:
+            # per-query deadline: abandon arrivals that have already waited
+            # past it instead of batching them
+            keep = [(a, q) for a, q in core.pending
+                    if now - a <= self.deadline]
+            n_drop = len(core.pending) - len(keep)
+            if n_drop:
+                core.pending = keep
+                stats.failed += n_drop
+        formed = core.form_batches(now)
+        if tracer.on and formed:
+            t = tracer.now()
+            for rb in formed:
+                rb.ready_ns = t
+                if rb.stage == core.entries[0]:
+                    for q in rb.items:
+                        tracer.span("batch_wait",
+                                    self._admitted.pop((ti, q.qid)), t,
+                                    {"ti": ti, "qid": q.qid, "bid": rb.bid})
+        return i, formed
 
     # ---- process backend ----------------------------------------------
 
@@ -666,7 +758,8 @@ class MultiTenantEngine:
                 self.comm_model.crossover_bytes(), force=force,
                 shm_ok=self.comm_model.global_memory_enabled,
                 start_method=self.start_method, slots=self.shm_slots,
-                slot_bytes=self.shm_slot_bytes, on_card=on_card)
+                slot_bytes=self.shm_slot_bytes, on_card=on_card,
+                trace=self.tracer.on)
             self._supervisor = WorkerSupervisor(
                 self._pool, heartbeat_timeout=self.supervise_timeout)
         devices = sorted({inst.device for core in cores
@@ -696,7 +789,6 @@ class MultiTenantEngine:
         self._ensure_pool(cores, 0.0)
         pool, sup = self._pool, self._supervisor
         retry = _RetryQueue()
-        fid_gen = count()
         inflight: Dict[int, _InFlight] = {}
         # slot refcounts: ref.key() -> [consumers_left, ref]; a bid's live
         # refs are also indexed by (ti, bid) so abandonment can reclaim
@@ -736,6 +828,7 @@ class MultiTenantEngine:
         # trace-relative times
         for d in pool.devices():
             sup.track(d, 0.0)
+        tracer = self._start_spans()
         start = time.perf_counter()
         while any(i < n for i, n in zip(idx, lens)) or inflight \
                 or retry or any(c.has_work() for c in cores):
@@ -750,28 +843,20 @@ class MultiTenantEngine:
                     fl = inflight.pop(fid, None)
                     if fl is None:
                         continue
-                    cores[fl.ti].release(fl.inst, busy_for=0.0)
+                    cores[fl.ti].release(fl.inst)
                     fail_or_retry(fl, now)
             self._requeue_due(retry, cores, now)
             for ti, (t, core, tr) in enumerate(
                     zip(self.tenants, cores, traces)):
-                while idx[ti] < lens[ti] and tr[idx[ti]].arrival <= now:
-                    core.admit(tr[idx[ti]], tr[idx[ti]].arrival)
-                    idx[ti] += 1
-                if self.deadline is not None and core.pending:
-                    keep = [(a, q) for a, q in core.pending
-                            if now - a <= self.deadline]
-                    n_drop = len(core.pending) - len(keep)
-                    if n_drop:
-                        core.pending = keep
-                        stats[ti].failed += n_drop
-                for rb in core.form_batches(now):
+                idx[ti], formed = self._admit_due(ti, core, tr, idx[ti], now,
+                                                  stats[ti])
+                for rb in formed:
                     # host-resident stacking: the worker moves it to its
                     # stage's device
                     rb.data = _stack_tokens_np(
                         [q.tokens for q in rb.items], t.batch_size)
                 for inst, rb in core.dispatch(now):
-                    fid = next(fid_gen)
+                    fid = next(self._fid_gen)
                     refs = [v for v in (rb.inputs or {}).values()
                             if isinstance(v, PayloadRef)]
                     inflight[fid] = _InFlight(ti, inst, rb,
@@ -792,6 +877,10 @@ class MultiTenantEngine:
                     if not pool.pending(inst.device):
                         sup.track(inst.device,
                                   time.perf_counter() - start)
+                    if tracer.on:
+                        tracer.span("queue", rb.ready_ns, tracer.now(),
+                                    {"ti": ti, "stage": rb.stage,
+                                     "bid": rb.bid, "fid": fid})
                     pool.submit(inst.device, task)
             wake = [traces[ti][idx[ti]].arrival
                     for ti in range(len(self.tenants))
@@ -807,6 +896,7 @@ class MultiTenantEngine:
                 self._complete_proc(ev, cores, stats, start, inflight,
                                     pins, bid_refs, unpin, drop_bid,
                                     fail_or_retry)
+        self._hand_out_spans(stats)
         return stats
 
     def _complete_proc(self, ev, cores: List[ExecCore],
@@ -822,6 +912,9 @@ class MultiTenantEngine:
         pool, sup = self._pool, self._supervisor
         wid, fid, payload, dt, err, mech, nbytes, t_comm = ev
         now = time.perf_counter() - start
+        tracer = self.tracer
+        if tracer.on:
+            folded = tracer.now()
         sup.beat(wid, now)
         fl = inflight.pop(fid, None)
         if fl is None:
@@ -831,9 +924,13 @@ class MultiTenantEngine:
                 pool.free(payload)
             return
         ti, rb = fl.ti, fl.rb
+        if tracer.on:
+            tracer.span("from_worker", None, folded,
+                        {"ti": ti, "stage": rb.stage, "bid": rb.bid,
+                         "fid": fid})
         t = self.tenants[ti]
         core = cores[ti]
-        core.release(fl.inst, busy_for=dt)
+        core.release(fl.inst)
         if err is not None:
             fail_or_retry(fl, now)
             return
@@ -857,7 +954,10 @@ class MultiTenantEngine:
                 t.channels[(u, v)].record(mech_name, nbytes)
                 # joined batches keep raw inputs: the CONSUMER's worker
                 # resolves refs and runs the fan-in combine process-side
-                core.deliver(u, v, rb.bid, rb.items, now, data=payload)
+                joined = core.deliver(u, v, rb.bid, rb.items, now,
+                                      data=payload)
+                if tracer.on and joined is not None:
+                    joined.ready_ns = folded
         else:
             if isinstance(payload, PayloadRef):
                 pool.free(payload)
@@ -865,6 +965,9 @@ class MultiTenantEngine:
                 for q in rb.items:
                     q.done = now
                     stats[ti].qos.record(now - q.arrival)
+                    if tracer.on:
+                        tracer.span("done", self._due_ns(q), folded,
+                                    {"ti": ti, "qid": q.qid, "bid": rb.bid})
                 stats[ti].batches += 1
                 drop_bid(ti, rb.bid)
 
@@ -910,6 +1013,8 @@ class MultiTenantEngine:
             if rb.bid in cores[ti]._abandoned:
                 continue
             retry.mark(ti, rb, attempt)
+            if self.tracer.on:
+                rb.ready_ns = self.tracer.now()
             cores[ti].ready[rb.stage].append(rb)
 
     def _complete(self, ev, cores: List[ExecCore],
@@ -918,7 +1023,7 @@ class MultiTenantEngine:
         ti, inst, rb, out, dt, err, attempt = ev
         t = self.tenants[ti]
         core = cores[ti]
-        core.release(inst, busy_for=dt)
+        core.release(inst)
         if err is not None:
             self._fail_or_retry(ti, rb, attempt, core, stats[ti], retry,
                                 time.perf_counter() - start)
@@ -937,10 +1042,18 @@ class MultiTenantEngine:
                                       data=handed)
                 if joined is not None:
                     joined.data = _fanin_combine(t.stages, v, joined.inputs)
+                    if self.tracer.on:
+                        joined.ready_ns = self.tracer.now()
         elif core.complete_exit(rb.bid, u):
+            tracer = self.tracer
+            if tracer.on:
+                done = tracer.now()
             for q in rb.items:
                 q.done = now
                 stats[ti].qos.record(now - q.arrival)
+                if tracer.on:
+                    tracer.span("done", self._due_ns(q), done,
+                                {"ti": ti, "qid": q.qid, "bid": rb.bid})
             stats[ti].batches += 1
 
 

@@ -40,12 +40,19 @@ crash remain readable) and the engine replays its in-flight batches within
 the existing retry budget.
 
 Observability: on its stop sentinel a worker posts an exit report — its
-stage servers' ``calls`` and its kernels' launch counts — which
-``WorkerPool.close()`` collects by worker, so a driver can show that the
-kernels ran in the workers.
+stage servers' ``calls``, its kernels' launch counts, and the ``spans``
+and ``counters`` of its tracer — which ``WorkerPool.close()`` collects by
+worker, so a driver can show that the kernels ran in the workers.  With
+``trace`` on, a worker turns on its process's tracer
+(``repro_torch.core.trace.PROCESS``) once it has warmed up, and records
+each task's ``to_worker``, ``resolve`` and ``publish`` spans; its stage
+servers record ``enqueue`` and ``sync`` under the task's ids.  On the card
+it first counts the device kernels of a warm call of each stage
+(``launches_per_call``).
 """
 from __future__ import annotations
 
+import bisect
 import importlib
 import pickle
 import queue as _queue
@@ -57,6 +64,7 @@ import numpy as np
 import torch
 import torch.multiprocessing as tmp
 
+from repro_torch.core import trace as tracing
 from repro_torch.serving.transport import (CUDA_IPC, QUEUE, SHM, ArenaMap,
                                            DeviceArena, PayloadRef,
                                            ShmArena)
@@ -121,6 +129,11 @@ class CpuStageServer:
         self.process(np.zeros((batch, self.seq_len), np.int32))
 
     def process(self, tokens) -> torch.Tensor:
+        """The ids; under a tracer that is on, the whole call is its
+        ``enqueue`` (the host does the work) and its ``sync`` is empty."""
+        tr = tracing.PROCESS
+        if tr.on:
+            t0 = tr.now()
         tokens = np.asarray(tokens)
         self.calls += 1
         seeds = [int(r) for r in tokens.reshape(tokens.shape[0], -1)[:, 0]]
@@ -129,6 +142,10 @@ class CpuStageServer:
             for _ in range(self.spin):          # GIL-bound by construction
                 acc = (acc * 1103515245 + 12345) & 0x7FFFFFFF
             out[i] = acc % self.vocab_size
+        if tr.on:
+            t1 = tr.now()
+            tr.span("enqueue", t0, t1)
+            tr.span("sync", t1, t1)
         return torch.from_numpy(out)
 
 
@@ -148,6 +165,7 @@ class _WorkerConfig:
     batch_sizes: Tuple[int, ...] = ()  # per-tenant warmup batch
     device_arena: Optional[str] = None  # its own DeviceArena (card pools)
     card: Optional[int] = None         # the CUDA device it runs on
+    trace: bool = False                # turn on the process's tracer
 
 
 def _resolve(payload, amap: ArenaMap, cfg: _WorkerConfig):
@@ -234,13 +252,54 @@ def _calls(tenants) -> List[List[Optional[int]]]:
 
 def _exit_report(tenants, calls0) -> dict:
     """The calls this worker made to each stage server (per tenant, per
-    stage; warm-ups included) and its kernels' launches since it
-    started."""
+    stage; warm-ups included), its kernels' launches since it started, and
+    its tracer's records (empty lists with the tracer off)."""
     return {"calls": [[None if c is None else c - c0
                        for c, c0 in zip(row, row0)]
                       for row, row0 in zip(_calls(tenants), calls0)],
             "launches": {name: getattr(importlib.import_module(mod), count)
-                         for name, (mod, count) in KERNEL_MODULES.items()}}
+                         for name, (mod, count) in KERNEL_MODULES.items()},
+            **tracing.PROCESS.take()}
+
+
+#: spin kernels launched before the counted calls: a profiler session can
+#: lose its first device records
+_LEAD_IN = 64
+#: warm calls counted a stage: a session can lose records (three workers
+#: profile at once), never add one, so the count is the largest
+_COUNTED_CALLS = 3
+
+
+def _launches_per_call(tenants, batch_sizes) -> List[Tuple[int, int, int]]:
+    """(tenant, stage, kernels) of a warm call of each stage, from one
+    ``torch.profiler`` session of CUDA activity (copies and fills left
+    out): a call's kernels are those that start between the host's stamps
+    before the call and after its synchronize, on the profiler's clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    shift = tracing.clock_shift()
+    calls = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(_LEAD_IN):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        for ti, stages in enumerate(tenants):
+            b = batch_sizes[ti] if ti < len(batch_sizes) else 1
+            for si, st in enumerate(stages):
+                for _ in range(_COUNTED_CALLS):
+                    lo = time.time_ns() + shift
+                    st.warmup(b)
+                    torch.cuda.synchronize()
+                    calls.append((ti, si, lo, time.time_ns() + shift))
+    starts = sorted(e.start_ns() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA
+                    and not e.is_user_annotation()
+                    and not e.name().startswith(("Memcpy", "Memset")))
+    most: Dict[Tuple[int, int], int] = {}
+    for ti, si, lo, hi in calls:
+        n = bisect.bisect_right(starts, hi) - bisect.bisect_left(starts, lo)
+        most[(ti, si)] = max(most.get((ti, si), 0), n)
+    return [(ti, si, n) for (ti, si), n in most.items()]
 
 
 def _worker_main(wid: int, task_q, done_q, stages_blob: bytes,
@@ -264,9 +323,18 @@ def _worker_main(wid: int, task_q, done_q, stages_blob: bytes,
         b = cfg.batch_sizes[ti] if ti < len(cfg.batch_sizes) else 1
         for st in stages:
             st.warmup(b)
+    tr = tracing.PROCESS
+    if cfg.trace:
+        counted = _launches_per_call(tenants, cfg.batch_sizes) \
+            if cfg.card is not None else []
+        tr.enable()
+        for ti, si, n in counted:
+            tr.count("launches_per_call", n, {"ti": ti, "stage": si})
     done_q.put((wid, _READY, None, 0.0, None, None, 0, 0.0))
     while True:
         task = task_q.get()
+        if tr.on:
+            got = tr.now()
         if task is None:
             done_q.put((wid, _EXIT, _exit_report(tenants, calls0), 0.0,
                         None, None, 0, 0.0))
@@ -275,26 +343,37 @@ def _worker_main(wid: int, task_q, done_q, stages_blob: bytes,
             amap.register(task)
             continue
         fid, ti, stage, data, inputs, _attempt = task
-        t0 = time.perf_counter()
-        t_comm = 0.0
+        if tr.on:
+            tr.ids = {"ti": ti, "stage": stage, "fid": fid}
+            tr.span("to_worker", None, got)
+        # comm_s: the input's resolve and the output's publish; compute_s:
+        # the stage's call alone
+        dt = t_comm = 0.0
         try:
             st = tenants[ti][stage]
-            tc0 = time.perf_counter()
+            t0 = time.perf_counter()
             if inputs is not None:
                 x = _combine(st, {p: _resolve(v, amap, cfg)
                                   for p, v in inputs.items()})
             else:
                 x = _to_stage(st, _resolve(data, amap, cfg))
-            t_comm += time.perf_counter() - tc0
+            t1 = time.perf_counter()
+            if tr.on:
+                tr.span("resolve", got, tr.now())
+            t_comm = t1 - t0
             out = st.process(x)
-            dt = time.perf_counter() - t0
-            tc0 = time.perf_counter()
+            t2 = time.perf_counter()
+            dt = t2 - t1
+            if tr.on:
+                p0 = tr.now()
             payload, mech, nbytes = _publish(out, cfg, arena, dev_arena)
-            t_comm += time.perf_counter() - tc0
+            if tr.on:
+                tr.span("publish", p0, tr.now())
+            t_comm += time.perf_counter() - t2
             done_q.put((wid, fid, payload, dt, None, mech, nbytes, t_comm))
         except Exception as e:  # noqa: BLE001 — report, never die
-            done_q.put((wid, fid, None, time.perf_counter() - t0,
-                        f"{type(e).__name__}: {e}", None, 0, t_comm))
+            done_q.put((wid, fid, None, dt, f"{type(e).__name__}: {e}",
+                        None, 0, t_comm))
     arena.close()
     amap.close()
 
@@ -320,14 +399,17 @@ class WorkerPool:
     ``WorkerDone`` completions from one shared queue.  Spawned once per
     ``serve()``/first trace and reused across traces and allocation swaps
     (``ensure`` adds workers for newly placed devices on demand).
-    ``on_card`` gives every worker a ``DeviceArena`` on its card.
+    ``on_card`` gives every worker a ``DeviceArena`` on its card;
+    ``trace`` turns on every worker's tracer (its records come back in
+    the exit reports).
     """
 
     def __init__(self, stages_blob: bytes, batch_sizes: Sequence[int],
                  crossover_bytes: float, force: Optional[str] = None,
                  shm_ok: bool = True, start_method: str = "spawn",
                  slots: int = 32, slot_bytes: int = 1 << 20,
-                 ready_timeout: float = 120.0, on_card: bool = False):
+                 ready_timeout: float = 120.0, on_card: bool = False,
+                 trace: bool = False):
         if on_card and not torch.cuda.is_available():
             raise RuntimeError("the stages are on the card, but there is no "
                                "CUDA device for their device arenas")
@@ -335,7 +417,8 @@ class WorkerPool:
         self._cfg_proto = _WorkerConfig(
             arena_name="", slots=int(slots), slot_bytes=int(slot_bytes),
             crossover_bytes=float(crossover_bytes), shm_ok=bool(shm_ok),
-            force=force, batch_sizes=tuple(int(b) for b in batch_sizes))
+            force=force, batch_sizes=tuple(int(b) for b in batch_sizes),
+            trace=bool(trace))
         self._on_card = on_card
         # torch's context: its pickler shares CUDA tensors by IPC handle
         self._ctx = tmp.get_context(start_method)
@@ -386,7 +469,8 @@ class WorkerPool:
             slot_bytes=proto.slot_bytes,
             crossover_bytes=proto.crossover_bytes, shm_ok=proto.shm_ok,
             force=proto.force, batch_sizes=proto.batch_sizes,
-            device_arena=dev_arena.name if dev_arena else None, card=card)
+            device_arena=dev_arena.name if dev_arena else None, card=card,
+            trace=proto.trace)
         task_q = self._ctx.Queue()
         proc = self._ctx.Process(
             target=_worker_main, name=f"serve-worker-{device}",

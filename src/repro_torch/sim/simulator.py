@@ -415,7 +415,7 @@ class MultiTenantSimulator:
                 bt = busy_t[ti]
                 bt[dev] = bt.get(dev, 0.0) + dur
                 heappush(evq, (now + dur, nxt(), _COMPUTE,
-                               (ti, inst, rb, dur)))
+                               (ti, inst, rb)))
                 return
             prof = graphs[ti].nodes[inst.stage]
             base = prof.duration(b, inst.quota, self.device)
@@ -434,7 +434,7 @@ class MultiTenantSimulator:
             device_busy[inst.device] = device_busy.get(inst.device, 0.0) + dur
             bt = busy_t[ti]
             bt[inst.device] = bt.get(inst.device, 0.0) + dur
-            push(now + dur, _COMPUTE, (ti, inst, rb, dur))
+            push(now + dur, _COMPUTE, (ti, inst, rb))
 
         def dispatch(ti, si, now):
             core = cores[ti]
@@ -477,13 +477,13 @@ class MultiTenantSimulator:
                 if cores[ti].oldest_pending() == oldest:
                     flush(ti, now)
             elif kind == _COMPUTE:
-                ti, inst, rb, dur = payload
+                ti, inst, rb = payload
                 events_t[ti] += 1
                 core = cores[ti]
                 if inc_bw:
                     dev_bw[inst.device] = \
                         dev_bw.get(inst.device, 0.0) - inst.bandwidth
-                core.release(inst, dur)
+                core.release(inst)
                 u = rb.stage
                 if active:
                     if rb.bid in core._abandoned:

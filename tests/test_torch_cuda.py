@@ -1046,3 +1046,39 @@ def test_cuda_processes_backend_hands_off_by_cuda_ipc(card):
     launched = sum(r["launches"]["flash_attention_bhsd"]
                    for r in eng.worker_reports.values())
     assert launched == layers * (stats.batches + 2)
+
+
+def test_cuda_traced_workers_count_launches_and_time_their_calls(card):
+    """Reduced qwen stages on the card, traced: each worker counts the
+    kernels of one warm call of each stage at warm-up (at least one
+    attention launch a layer, and the same count in both workers), and
+    every stage call has its ``enqueue`` and ``sync`` spans."""
+    from repro_torch.core.trace import link
+    from repro_torch.core.types import Allocation, Placement, StageAlloc
+    from repro_torch.serving import ModelStageServer, PipelineEngine, \
+        make_trace
+    stages = [ModelStageServer(f"s{i}", arch, seq_len=16, seed=i,
+                               reduced=True)
+              for i, arch in enumerate(("qwen3-0.6b", "qwen1.5-0.5b"))]
+    alloc = Allocation(stages=[StageAlloc(1, 0.5, 4), StageAlloc(1, 0.5, 4)],
+                       placement=Placement(per_stage=[[(0, 0.5)],
+                                                      [(1, 0.5)]]))
+    with PipelineEngine(stages, qos_target=30.0, batch_timeout=0.5,
+                        allocation=alloc, backend="processes",
+                        trace=True) as eng:
+        stats = eng.run_trace(make_trace(8, qps=1e6, seq_len=16,
+                                         vocab=stages[0].cfg.vocab_size,
+                                         seed=2))
+    reports = eng.worker_reports.values()
+    counts = [{(c[2]["ti"], c[2]["stage"]): c[1] for c in r["counters"]
+               if c[0] == "launches_per_call"} for r in reports]
+    assert len(counts) == 2 and counts[0] == counts[1]
+    for si, st in enumerate(stages):
+        layers = st.cfg.block_pattern.count("attn") * st.cfg.num_superblocks
+        assert counts[0][(0, si)] > layers
+    spans = link(stats.spans, [s for r in reports for s in r["spans"]])
+    calls = 2 * stats.batches
+    for name in ("queue", "to_worker", "resolve", "enqueue", "sync",
+                 "publish", "from_worker"):
+        assert sum(s[0] == name for s in spans) == calls, name
+    assert all(s[2] >= s[1] for s in spans)
