@@ -150,7 +150,11 @@ Phases, each printing one line per case:
      prefill rows' shapes beside autograd through the plain version, one
      SDPA backward and the bound (``time_attention_bwd``; the scan's at
      Jamba's chunk B 4 and 1, ``time_ssm_bwd``; the mLSTM's at
-     xlstm-1.3b's train chunk, device ms by pass, ``time_mlstm_bwd``),
+     xlstm-1.3b's train chunk, device ms by pass, ``time_mlstm_bwd``;
+     the AdamW kernels at qwen3-0.6b's and jamba's training leaves, first
+     held bit for bit to the leaf loop with their norm to an fp64 sum
+     (``adamw_check``), then timed beside the leaf loop and their bytes
+     bound, ``time_adamw``),
      then ``forward_train``'s loss and every gradient at full width, two
      layers, fp32, through the kernels against the plain op
      (``train_grads``: qwen3-0.6b's attention, xlstm-1.3b's mLSTM chunk,
@@ -164,8 +168,9 @@ Phases, each printing one line per case:
      step), jamba's first two layers (B 1, S 2048: 32 forward and 16
      backward scan launches), starcoder2-3b at full depth (B 2, S 4096:
      60 and 30 attention launches) and qwen3-moe-30b-a3b's first 4 of 48
-     layers (B 4, S 2048: 8 and 4), each step's AdamW update in place
-     and its memory held to three fp32 copies of the largest leaf, and
+     layers (B 4, S 2048: 8 and 4), each step's AdamW update in place,
+     its launches held to ``UPDATE_LAUNCHES`` (3) a timed step and its
+     memory to ``UPDATE_BOUND_BYTES`` (1 MiB), and
      decode attention raising under grad
      on the card, and attention whose last rows see no key refused under
      grad (``train_guards``);
@@ -3505,6 +3510,132 @@ def time_mlstm_bwd(ms, part: str, peaks) -> list:
     return rows
 
 
+# the AdamW kernels' norm against an fp64 sum of squares (relative)
+ADAMW_NORM_REL_TOL = 1e-6
+
+
+def adamw_held_to_plain(label: str, params, opt, grads, h,
+                        fresh: bool) -> dict:
+    """One update of every leaf through the AdamW kernels against the leaf
+    loop (``adamw_step_plain``) from the same state, given the kernels'
+    clip scale: p, m and v bit for bit on every leaf, and the kernels'
+    norm within ``ADAMW_NORM_REL_TOL`` of an fp64 sum of squares.  The
+    leaf loop runs leaf by leaf from a copy of the parameters taken before
+    the kernels ran and, with ``fresh`` (the moments still zero), zero
+    moments; else from copies of the moments too, which jamba's cut has
+    no room for beside its state.  Raises on any mismatch."""
+    from repro_torch.kernels import adamw
+    saved = {n: (p.clone(),) if fresh else
+             (p.clone(), opt.mu[n].clone(), opt.nu[n].clone())
+             for n, p in params.items()}
+    want = math.sqrt(sum(
+        float(torch.linalg.vector_norm(g, dtype=torch.float64)) ** 2
+        for g in grads.values()))
+    t = adamw.leaf_table(grads, params, opt.mu, opt.nu)
+    gnorm, scale = adamw.grad_norm(t, 1.0)
+    adamw.adamw_step(t, scale, h)
+    torch.cuda.synchronize()
+    off = []
+    for n, p in params.items():
+        q, *mv = saved.pop(n)
+        m, v = mv or (torch.zeros_like(opt.mu[n]),
+                      torch.zeros_like(opt.nu[n]))
+        adamw.adamw_step_plain({n: grads[n]}, {n: q}, {n: m}, {n: v},
+                               scale, h)
+        if not (torch.equal(q, p) and torch.equal(m, opt.mu[n])
+                and torch.equal(v, opt.nu[n])):
+            off.append(n)
+        del q, m, v
+    row = {"phase": "adamw_check", "model": label, "leaves": t.leaves,
+           "chunks": t.chunks, "moments": "zero" if fresh else "carried",
+           "scale": float(scale), "grad_norm": float(gnorm),
+           "grad_norm_fp64": want,
+           "norm_rel_err": abs(float(gnorm) - want) / want,
+           "norm_tol": ADAMW_NORM_REL_TOL, "leaves_not_bit_equal": off}
+    emit(row)
+    if off or not row["norm_rel_err"] <= ADAMW_NORM_REL_TOL:
+        raise AssertionError(f"adamw_check {label}: leaves {off[:8]} off "
+                             f"the leaf loop, norm {float(gnorm)} against "
+                             f"{want}")
+    return row
+
+
+def time_adamw(Transformer, get_config, peaks) -> list:
+    """The AdamW kernels (``kernels/adamw.py``) at two training steps'
+    leaves: qwen3-0.6b at full width and depth (bf16) and jamba-v0.1-52b's
+    two-layer training cut (bf16 with its fp32 leaves), random gradients.
+    First held to the leaf loop (``adamw_held_to_plain``): from zero
+    moments, and for qwen3-0.6b a second update from the moments the first
+    left.  Then timed: a whole update (the table, the norm and scale, the
+    update) by CUDA events and the host's ms to enqueue it, device ms of
+    each kernel by the profiler, the leaf loop's ms, and the bound: the
+    bytes the update must move (each gradient read twice, for the norm and
+    the update; each parameter and moment read and written once) at the
+    card's rate.  No single PyTorch call computes it: library none."""
+    from repro_torch.kernels import adamw
+    from repro_torch.training import AdamWConfig, init_adamw
+    from repro_torch.training.optimizer import hyper
+    _, mem_rate = peaks
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    h = hyper(1, AdamWConfig())
+    rows = []
+    for label, cfg, carried in (
+            ("qwen3-0.6b", get_config("qwen3-0.6b"), True),
+            ("jamba-v0.1-52b, 2 layers",
+             jamba_config(get_config, JAMBA_TRAIN_LAYERS), False)):
+        model = Transformer(cfg, device="cuda", dtype=torch.bfloat16,
+                            init=False)
+        params = dict(model.named_parameters())
+        # finite values: the allocator hands back the earlier phases'
+        # memory, whose NaNs would fail the bit-for-bit check
+        for p in params.values():
+            p.copy_(rand(gen, p.shape, torch.float32))
+        opt = init_adamw(params)
+        grads = {n: rand(gen, p.shape, torch.float32).to(p.dtype)
+                 for n, p in params.items()}
+        checks = [adamw_held_to_plain(label, params, opt, grads, h, True)]
+        if carried:
+            checks.append(adamw_held_to_plain(
+                label, params, opt, grads, hyper(2, AdamWConfig()), False))
+        gc_collect()
+
+        def update():
+            t = adamw.leaf_table(grads, params, opt.mu, opt.nu)
+            _, scale = adamw.grad_norm(t, 1.0)
+            adamw.adamw_step(t, scale, h)
+        update()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        before = adamw.LAUNCHES
+        t_ms = cuda_ms(update, 5, warmup=1)
+        launches = (adamw.LAUNCHES - before) // 6
+        by_kernel = kernel_device_ms(update, adamw.KERNELS, 3)
+        dev_ms = sum(by_kernel.values())
+        plain_ms = cuda_ms(lambda: adamw.adamw_step_plain(
+            dict(grads), params, opt.mu, opt.nu,
+            torch.ones((), device="cuda"), h), 1, warmup=1)
+        nbytes = sum(p.numel() * (2 * g.element_size()
+                                  + 2 * p.element_size() + 16)
+                     for p, g in zip(params.values(), grads.values()))
+        row = {"model": label, "leaves": len(params),
+               "params": sum(p.numel() for p in params.values()),
+               "launches": launches, "ms": t_ms, "host_ms": host_ms,
+               "device_ms": dev_ms, "device_ms_by_kernel": by_kernel,
+               "plain_ms": plain_ms, "library_ms": None, "bytes": nbytes,
+               "bound_ms": nbytes / mem_rate * 1e3, "bound_by": "bytes",
+               "checks": [c["moments"] for c in checks],
+               "norm_rel_err": max(c["norm_rel_err"] for c in checks)}
+        row["bound_share"] = row["bound_ms"] / t_ms
+        row["bound_share_device"] = row["bound_ms"] / dev_ms
+        emit({"phase": "time_adamw", **row})
+        rows.append(row)
+        del model, params, opt, grads
+        gc_collect()
+    return rows
+
+
 def _finite(x) -> float:
     x = float(x)
     if not math.isfinite(x):
@@ -3594,21 +3725,31 @@ def train_grads_phase(op: TrainOp, Transformer, cfg, b: int, s: int,
     return {"launches_fwd_bwd": launched}
 
 
+# the most the AdamW update may raise the allocator's peak: its leaf
+# table, the norm's partials and the norm and scale
+UPDATE_BOUND_BYTES = 1 << 20
+# the AdamW kernels' launches a training step: the norm's two, the update
+UPDATE_LAUNCHES = 3
+
+
 def measured_update(step, opt, batch, peak_bytes_s: float):
     """One ``make_train_step`` step whose AdamW update alone is measured:
     the rise of the allocator's peak over what was allocated just before
     it, its CUDA-event ms (the gradient norm included), the host's ms to
     return from it before the device is waited on, and its bound, the
-    bytes the update must move (each gradient, parameter and moment read
-    once, each parameter and moment written once) at the card's rate.
+    bytes the update must move (each gradient read twice, for the norm
+    and the update; each parameter and moment read and written once) at
+    the card's rate.
     Returns (opt, the measurement)."""
     from repro_torch.training import train_step as ts
     real, got = ts.adamw_update, {}
 
     def update(grads, state, params, cfg):
-        moved = sum(p.numel() * (g.element_size() + 2 * p.element_size()
-                                 + 16) for g, p in zip(grads.values(),
-                                                       params.values()))
+        moved = sum(p.numel() * (2 * g.element_size()
+                                 + 2 * p.element_size() + 16)
+                    for g, p in zip(grads.values(), params.values()))
+        # a strided gradient would cost the kernels a copy of its leaf
+        strided = [n for n, g in grads.items() if not g.is_contiguous()]
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3622,7 +3763,8 @@ def measured_update(step, opt, batch, peak_bytes_s: float):
         got.update({"peak_gb": (torch.cuda.max_memory_allocated()
                                 - base) / 1e9,
                     "ms": ev[0].elapsed_time(ev[1]), "host_ms": host_ms,
-                    "bound_ms": moved / peak_bytes_s * 1e3})
+                    "bound_ms": moved / peak_bytes_s * 1e3,
+                    "strided_grads": strided})
         return out
     ts.adamw_update = update
     try:
@@ -3636,15 +3778,18 @@ def train_steps(op: TrainOp, model, batches, steps: int, label: str,
                 profile: bool, peak_bytes_s: float, expect=None,
                 **fields) -> dict:
     """``make_train_step`` on ``model`` (bf16): one warm-up step, then
-    ``steps`` timed ones (``op``'s kernels' launches counted from 0 just
-    before them), then one more, then, with ``profile``, one profiled
+    ``steps`` timed ones (``op``'s kernels' launches and the AdamW
+    kernels' counted from 0 just before them: the update must launch
+    ``UPDATE_LAUNCHES`` a step), then one more, then, with ``profile``, one profiled
     step, which must record ``expect``'s launches besides the backward's.
     The AdamW update of the warm-up step and of the one after the timed
     steps is measured alone (``measured_update``): the line gives both
     readings, the warm-up's first.  Each batch is made on the host before
     its step's clock starts; ``fields`` join the line.  Raises if the
-    update's memory rose past three fp32 copies of the largest leaf in
-    either reading."""
+    update's memory rose past ``UPDATE_BOUND_BYTES`` in either reading:
+    the AdamW kernels allocate their leaf table and the norm's partials,
+    never scratch the size of a leaf."""
+    from repro_torch.kernels import adamw
     from repro_torch.training import (AdamWConfig, init_adamw,
                                       make_train_step)
     cfg = model.cfg
@@ -3656,7 +3801,7 @@ def train_steps(op: TrainOp, model, batches, steps: int, label: str,
     opt, warm = measured_update(step, opt, first, peak_bytes_s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    op.mod.LAUNCHES = op.mod.BWD_LAUNCHES = 0
+    op.mod.LAUNCHES = op.mod.BWD_LAUNCHES = adamw.LAUNCHES = 0
     per_step, walls = [], []
     for i in range(1, steps + 1):
         batch = batches(i)            # made on the host, before the clock
@@ -3668,6 +3813,7 @@ def train_steps(op: TrainOp, model, batches, steps: int, label: str,
                          "grad_norm": _finite(met["grad_norm"]),
                          "lr": _finite(met["lr"])})
     launches = (op.mod.LAUNCHES, op.mod.BWD_LAUNCHES)
+    update_launches = adamw.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     opt, steady = measured_update(step, opt, batches(steps + 1),
                                   peak_bytes_s)
@@ -3675,9 +3821,13 @@ def train_steps(op: TrainOp, model, batches, steps: int, label: str,
     update = {f"update_{k}": [r[k] for r in readings]
               for k in ("ms", "host_ms")}
     update.update({
+        "update_launches": update_launches,
+        "update_launches_per_step": update_launches / steps,
+        "update_strided_grads": sorted({n for r in readings
+                                        for n in r["strided_grads"]}),
         "update_peak_gb": max(r["peak_gb"] for r in readings),
         "update_bound_ms": warm["bound_ms"],
-        "update_bound_gb": 3 * 4 * max(p.numel() for p in params) / 1e9,
+        "update_bound_gb": UPDATE_BOUND_BYTES / 1e9,
         # weights and their gradients in the model's dtypes, fp32 moments
         "state_gb": sum(p.numel() * (2 * p.element_size() + 8)
                         for p in params) / 1e9})
@@ -3711,6 +3861,10 @@ def train_steps(op: TrainOp, model, batches, steps: int, label: str,
                     "device_launches": sum(n for _, n, _ in kernels),
                     "top_device_kernels": kernels[:6]})
     emit(out)
+    if update_launches != UPDATE_LAUNCHES * steps:
+        raise AssertionError(f"{label}: the AdamW update launched "
+                             f"{update_launches} kernels in {steps} steps, "
+                             f"not {UPDATE_LAUNCHES} a step")
     if update["update_peak_gb"] > update["update_bound_gb"]:
         raise AssertionError(f"{label}: the AdamW update took "
                              f"{update['update_peak_gb']} GB, past its "
@@ -3784,8 +3938,8 @@ def train_phase(fa, ms, sm, ops, Transformer, get_config,
     2048 (the capacity dispatch over 128 experts at T·k = 65,536): one
     timed step and one profiled; (f) the guards.  Every step, the
     warm-up's included, updates the parameters and moments in place, the
-    update's memory measured against three fp32 copies of the largest
-    leaf (``train_steps``)."""
+    update's memory measured against ``UPDATE_BOUND_BYTES``
+    (``train_steps``)."""
     from repro_torch.configs import MLSTM
     from repro_torch.models import param_bytes
     from repro_torch.models.ssm import SSM_CHUNK
@@ -3926,6 +4080,7 @@ def main() -> int:
     timing_bwd = time_attention_bwd(fa, ops, peaks)
     timing_ssm_bwd = time_ssm_bwd(sm, part, peaks)
     timing_mlstm_bwd = time_mlstm_bwd(ms, part, peaks)
+    timing_adamw = time_adamw(Transformer, get_config, peaks)
     # training: the backward kernels' paths (each op's counts from 0 just
     # before its model's timed steps: qwen3-0.6b for attention, xlstm-1.3b
     # for the mLSTM chunk, jamba's two Mamba layers for the scan)
@@ -4014,6 +4169,7 @@ def main() -> int:
     bwd_row = timing_bwd[0]               # qwen3-0.6b's, B 4, S 2048
     mlstm_bwd_row = timing_mlstm_bwd[0]   # xlstm-1.3b's chunk, bf16
     ssm_bwd_row = timing_ssm_bwd[0]       # jamba's chunk at B 4
+    adamw_row = timing_adamw[0]           # qwen3-0.6b's 310 leaves
     emit({"phase": "profiler", "profiles": len(LEAD_IN_LOST),
           "lead_in": PROFILE_LEAD_IN, "lead_in_lost": LEAD_IN_LOST})
     emit({"kernels": [{
@@ -4181,7 +4337,29 @@ def main() -> int:
         "bound_ms": ssm_bwd_row["bound_ms"],
         "bound_by": ssm_bwd_row["bound_by"], "library_ms": None,
         "library_note": "no single PyTorch call computes this gradient",
-        "per_shape": timing_ssm_bwd}]})
+        "per_shape": timing_ssm_bwd}, {
+        "name": "adamw_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "no TPU kernel (XLA's fusion of "
+                    "src/repro/training/optimizer.py:adamw_update in the "
+                    "reference's jitted step)",
+        "launches": train["qwen"]["update_launches"],
+        "launches_note": "3 timed make_train_step steps of qwen3-0.6b, "
+                         "full width and depth, B 4, S 2048: the norm's "
+                         "two and the update's one a step",
+        **{f"launches_train_{k}": train[k]["update_launches"]
+           for k in ("whisper", "xlstm", "jamba", "starcoder2",
+                     "qwen3_moe")},
+        "launches_time_adamw": adamw_row["launches"],
+        "norm_rel_err": max(r["norm_rel_err"] for r in timing_adamw),
+        "bit_equal_to_plain": [(r["model"], r["checks"])
+                               for r in timing_adamw],
+        "ms": adamw_row["ms"], "device_ms": adamw_row["device_ms"],
+        "plain_ms": adamw_row["plain_ms"],
+        "bound_ms": adamw_row["bound_ms"],
+        "bound_by": adamw_row["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes this update",
+        "per_shape": timing_adamw}]})
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

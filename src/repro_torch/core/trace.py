@@ -53,8 +53,11 @@ The spans of a served query, by where they are stamped:
 ===============  ==========================================================
 
 and of a training step: ``batch_in``, ``fwd_bwd`` and ``update``.
-Counter: ``launches_per_call``, the device kernels of one warm call of a
-stage, per (``ti``, ``stage``), counted by each worker at warm-up.
+Counters: ``launches_per_call``, the device kernels of one warm call of a
+stage, per (``ti``, ``stage``), counted by each worker at warm-up; and
+``update_launches``, the AdamW kernels' launches in one training step's
+update (``kernels.adamw.LAUNCHES``), recorded by the step where its
+update ran on the card.
 """
 from __future__ import annotations
 

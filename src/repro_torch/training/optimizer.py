@@ -24,6 +24,13 @@ from typing import Dict, Mapping, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels import adamw
+from repro_torch.kernels.adamw import decays
+from repro_torch.models.common import _is_dtensor
+
+__all__ = ["AdamWConfig", "AdamWState", "adamw_update", "decays",
+           "global_norm", "hyper", "init_adamw", "schedule"]
+
 Tensors = Dict[str, torch.Tensor]
 
 
@@ -79,11 +86,38 @@ def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
         for x in tensors.values()))
 
 
-def decays(p: torch.Tensor) -> bool:
-    """Whether weight decay applies to a per-layer leaf: its matrices (and
-    stacks of matrices, as the MoE experts), not its norm scales and
-    biases."""
-    return p.dim() >= 2
+def hyper(step: int, cfg: AdamWConfig) -> adamw.Hyper:
+    """The scalars of update number ``step`` (from 1): the scheduled
+    learning rate and the bias corrections 1 - beta^step in fp32, as the
+    reference."""
+    return adamw.Hyper(lr=schedule(step, cfg), beta1=cfg.beta1,
+                       beta2=cfg.beta2, eps=cfg.eps,
+                       weight_decay=cfg.weight_decay,
+                       bc1=float(1 - _f32(cfg.beta1) ** step),
+                       bc2=float(1 - _f32(cfg.beta2) ** step))
+
+
+def _clip_scale(gnorm: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
+    return torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                       max=1.0)
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if _is_dtensor(x) else x
+
+
+def _local_grad(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """This rank's part of gradient ``g`` laid out as leaf ``p``'s local
+    tensor (what the leaf loop's ``copy_`` into a scratch like ``p``
+    does); a plain tensor beside a DTensor counts as replicated."""
+    if not _is_dtensor(p):
+        return g.full_tensor() if _is_dtensor(g) else g
+    if not _is_dtensor(g):
+        from torch.distributed.tensor import DTensor, Replicate
+        g = DTensor.from_local(g, p.device_mesh,
+                               [Replicate()] * p.device_mesh.ndim,
+                               run_check=False)
+    return g.redistribute(p.device_mesh, p.placements).to_local()
 
 
 def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
@@ -91,48 +125,41 @@ def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState,
                  ) -> Tuple[Tensors, AdamWState, dict]:
     """Updates ``params`` and the moments of ``state`` in place and returns
     (the same params, ``AdamWState(step + 1)`` holding the same moment
-    tensors, {"grad_norm", "lr"}).  ``grads`` is consumed: each leaf's
-    gradient is popped once its leaf is done, so its memory can go back.
+    tensors, {"grad_norm", "lr"}).  ``grads`` is consumed: it is empty on
+    return, so the gradients' memory can go back.
 
-    Leaf by leaf, in fp32, through two scratch tensors the size of the
-    leaf (the update's transient memory: two fp32 copies of the largest
-    leaf), with the reference's elementary operations in its order, each
-    rounded to fp32 as the functional form rounds it."""
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
+    The route follows the leaves.  On the CPU, the leaf loop
+    (``kernels.adamw.adamw_step_plain``: two fp32 scratch tensors the size
+    of the leaf, the reference's elementary operations in its order, each
+    rounded to fp32 as the functional form rounds it).  On the card, the
+    multi-tensor kernels (``kernels/adamw.py``): the global norm and the
+    clip scale in two launches, with no host sync, then one launch that
+    updates every leaf, bit for bit the leaf loop's values given the same
+    scale.  DTensor leaves (a sharded launch) keep the DTensor reduction
+    for the norm, which knows the placements, and run the update kernel
+    on each leaf's local shard, the gradient laid out as its leaf first
+    (what the leaf loop's ``copy_`` into a scratch like the leaf does)."""
     step = state.step + 1
-    lr = schedule(step, cfg)
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = float(1 - _f32(b1) ** step)
-    bc2 = float(1 - _f32(b2) ** step)
-    with torch.no_grad():
-        for n in list(grads):
-            p, m, v = params[n], state.mu[n], state.nu[n]
-            a = torch.empty_like(p, dtype=torch.float32)
-            b = torch.empty_like(a)
-            a.copy_(grads.pop(n))
-            a.mul_(scale)                   # g = g scale
-            m.mul_(b1)
-            torch.mul(a, 1 - b1, out=b)
-            m.add_(b)                       # m = b1 m + (1 - b1) g
-            v.mul_(b2)
-            torch.square(a, out=b)
-            b.mul_(1 - b2)
-            v.add_(b)                       # v = b2 v + (1 - b2) g^2
-            torch.div(v, bc2, out=b)
-            b.sqrt_()
-            b.add_(cfg.eps)
-            torch.div(m, bc1, out=a)
-            a.div_(b)                       # delta = m^ / (sqrt(v^) + eps)
-            if decays(p):
-                b.copy_(p)
-                b.mul_(cfg.weight_decay)
-                a.add_(b)                   # delta = delta + wd p
-            a.mul_(lr)
-            b.copy_(p)
-            b.sub_(a)                       # p - lr delta, cast back below
-            p.copy_(b)
-            del a, b        # freed before the next leaf's are allocated
+    h = hyper(step, cfg)
+    if params[next(iter(grads))].device.type != "cuda":
+        gnorm = global_norm(grads)
+        adamw.adamw_step_plain(grads, params, state.mu, state.nu,
+                               _clip_scale(gnorm, cfg), h)
+    elif any(_is_dtensor(params[n]) or _is_dtensor(g)
+             for n, g in grads.items()):
+        gnorm = global_norm(grads)
+        scale = _clip_scale(gnorm, cfg)
+        if _is_dtensor(scale):
+            scale = scale.full_tensor()
+        table = adamw.leaf_table(
+            {n: _local_grad(g, params[n]) for n, g in grads.items()},
+            *({n: _local(d[n]) for n in grads}
+              for d in (params, state.mu, state.nu)))
+        adamw.adamw_step(table, scale, h)
+    else:
+        table = adamw.leaf_table(grads, params, state.mu, state.nu)
+        gnorm, scale = adamw.grad_norm(table, cfg.clip_norm)
+        adamw.adamw_step(table, scale, h)
+    grads.clear()
     return dict(params), AdamWState(step=step, mu=state.mu, nu=state.nu), {
-        "grad_norm": gnorm, "lr": lr}
+        "grad_norm": gnorm, "lr": h.lr}

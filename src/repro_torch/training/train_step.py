@@ -12,7 +12,9 @@ Traced (``make_train_step(..., trace=True)``), a step records three spans
 on its tracer, ``train_step.tracer`` (``repro_torch.core.trace``):
 ``batch_in`` (the batch to the device), ``fwd_bwd`` (the loss and its
 gradients) and ``update`` (AdamW), each the host's time to dispatch its
-part."""
+part; and, where the update ran on the card's kernels, the counter
+``update_launches``: their launches in this step's update
+(``kernels.adamw.LAUNCHES``)."""
 from __future__ import annotations
 
 from typing import Callable, Mapping, Tuple
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.trace import Tracer
+from repro_torch.kernels import adamw
 from repro_torch.models.transformer import Transformer
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
                                             adamw_update)
@@ -66,9 +69,12 @@ def make_train_step(model: Transformer,
         if tracer.on:
             t2 = tracer.now()
             tracer.span("fwd_bwd", t1, t2)
+            launched = adamw.LAUNCHES
         _, opt_state, stats = adamw_update(grads, opt_state, named, opt_cfg)
         if tracer.on:
             tracer.span("update", t2, tracer.now())
+            if adamw.LAUNCHES != launched:
+                tracer.count("update_launches", adamw.LAUNCHES - launched)
         return opt_state, {"loss": loss.detach(), **stats}
 
     train_step.tracer = tracer

@@ -56,12 +56,23 @@ def test_no_jax_or_reference_import(path):
     assert not DYNAMIC.findall(text), DYNAMIC.findall(text)
 
 
+# the kernels that replace no TPU kernel: the reference's function each
+# computes, which the JAX package leaves to XLA
+NO_TPU_KERNEL = {"adamw.cu": "src/repro/training/optimizer.py:adamw_update"}
+
+
 @pytest.mark.parametrize("path", KERNEL_SOURCES, ids=lambda p: p.name)
 def test_kernel_source_names_the_tpu_kernel_it_ports(path):
     """Each kernel's note opens by naming the TPU kernel (file and
-    function or line) it replaces, or whose gradient it is."""
+    function or line) it replaces, or whose gradient it is; a kernel that
+    replaces none says so and names the reference's function it
+    computes."""
     head = path.read_text().split("#include")[0]
-    assert re.search(r"src/repro/kernels/\w+\.py:", head), path.name
+    if path.name in NO_TPU_KERNEL:
+        assert "replaces no TPU kernel" in head, path.name
+        assert NO_TPU_KERNEL[path.name] in head, path.name
+    else:
+        assert re.search(r"src/repro/kernels/\w+\.py:", head), path.name
 
 
 def test_cuda_tests_import_no_jax():

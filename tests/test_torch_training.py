@@ -166,6 +166,27 @@ def test_schedule_matches_reference(step):
         ref_opt.schedule(jnp.asarray(step), ref_opt.AdamWConfig(**cfg)))
 
 
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "adamw_step_plain"), ("fp16", "dtypes"), ("grad_dtype", "dtypes"),
+    ("shape", "shapes"), ("strided", "contiguous")])
+def test_adamw_kernels_refuse_what_they_cannot_update(case, match):
+    """The multi-tensor kernels' table takes bf16/fp32 leaves laid out as
+    their gradients and of their dtype, contiguous, on one CUDA device:
+    CPU leaves (which the leaf loop updates), another dtype, a gradient
+    of another dtype or shape and a strided parameter are refused before
+    anything is launched."""
+    from repro_torch.kernels import adamw
+    p = {"w": torch.ones(4, 6, dtype=torch.float16 if case == "fp16"
+                         else torch.float32)}
+    if case == "strided":
+        p["w"] = p["w"].t()
+    g = {"w": torch.ones(6, 4) if case == "shape" else torch.ones_like(
+        p["w"], dtype=torch.bfloat16 if case == "grad_dtype" else None)}
+    opt = init_adamw(p)
+    with pytest.raises(ValueError, match=match):
+        adamw.leaf_table(g, p, opt.mu, opt.nu)
+
+
 def test_global_norm_and_clipping():
     t = {"a": torch.ones(3), "b": torch.full((4,), 2.0)}
     assert float(global_norm(t)) == pytest.approx(np.sqrt(3 + 16))
