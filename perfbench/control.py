@@ -61,8 +61,9 @@ def serve_control(cell: dict, cfg: dict, seed: int, seconds: float,
         w = {k: t.float() for k, t in make_weights(
             sc, util.derive_seed(seed, "weights", i), device,
             torch.bfloat16).items()}
-        ref = reference.last_logits(w, sc, inputs, "fp32")
-        low = reference.last_logits(w, sc, inputs, "fp8")
+        last_logits = util.family(sc).last_logits
+        ref = last_logits(w, sc, inputs, "fp32")
+        low = last_logits(w, sc, inputs, "fp8")
         first = low.argmax(-1)
         gaps[f"gap_stage{i}"] = float((ref.max(-1).values - ref.gather(
             1, first[:, None])[:, 0]).max())

@@ -4,6 +4,8 @@ Counted from the configuration's published shapes, whatever implements
 them: a matmul of (m, k) by (k, n) is 2·m·k·n operations; causal attention
 is counted at half of its square; elementwise work is not counted.  A
 kernel's bytes are its inputs read once and its outputs written once.
+A whole model's operations (``prefill_flops``, ``train_flops``) are its
+family's (``perfbench/families/<family>.py``), counted by these rules.
 """
 from __future__ import annotations
 
@@ -32,42 +34,11 @@ def dims(cfg: Mapping) -> dict:
                 v=cfg["vocab_size"])
 
 
-def layer_matmul_params(cfg: Mapping) -> int:
-    """Weights one layer multiplies each token by: q, k, v, o and the
-    SwiGLU's gate, up and down."""
-    m = dims(cfg)
-    attn = m["d"] * m["h"] * m["hd"] * 2 + m["d"] * m["kvh"] * m["hd"] * 2
-    return attn + 3 * m["d"] * m["f"]
-
-
 def attention_fwd_flops(batch: int, seq: int, heads: int, hd: int,
                         causal: bool = True) -> float:
     """QK^T and PV of one attention over ``seq`` positions."""
     full = 2 * 2 * batch * heads * seq * seq * hd
     return full / 2 if causal else full
-
-
-def prefill_flops(cfg: Mapping, batch: int, seq: int) -> float:
-    """One ``serve_prefill`` of (batch, seq) tokens: every layer over every
-    position, the head over the last position only."""
-    m = dims(cfg)
-    linear = 2 * batch * seq * layer_matmul_params(cfg) * m["layers"]
-    attn = attention_fwd_flops(batch, seq, m["h"], m["hd"]) * m["layers"]
-    head = 2 * batch * m["d"] * m["v"]
-    return linear + attn + head
-
-
-def train_flops(cfg: Mapping, batch: int, seq: int) -> float:
-    """Model operations of one training step: forward and backward of every
-    matmul, the head over every position included (3x the forward: the
-    backward takes the gradients of both operands), attention's QK^T and
-    PV at the causal half, also 3x; remat's recomputation left out."""
-    m = dims(cfg)
-    tokens = batch * seq
-    linear = 2 * tokens * (layer_matmul_params(cfg) * m["layers"]
-                           + m["d"] * m["v"])
-    attn = attention_fwd_flops(batch, seq, m["h"], m["hd"]) * m["layers"]
-    return 3 * (linear + attn)
 
 
 def attention_fwd_kernel(batch: int, seq: int, heads: int, kv_heads: int,

@@ -8,11 +8,14 @@ allocation, and a short warm-up trace at the cell's shapes spawns the
 workers (each warms every stage) and runs through the pool.  The window is
 one trace of Poisson arrivals at the cell's rate over ``seconds``; queries
 still queued when it closes are drained after it.  Then the workers are
-stopped, and the plain reference judges a sample of the served tokens.
+stopped, and the plain reference of each stage's family
+(``perfbench/families/<family>.py``) judges a sample of the served tokens.
 """
 from __future__ import annotations
 
+import bisect
 import json
+import os
 import shutil
 import tempfile
 import threading
@@ -23,13 +26,18 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from perfbench import counts, reference
-from perfbench.stage import (HEAD, TRACE_FILE, RecordingStage, StageSpec,
-                             read_calls, read_profiles)
+from perfbench import reference
+from perfbench.stage import (DONE_FILE, HEAD, TRACE_FILE, RecordingStage,
+                             StageSpec, collect_profiles, read_calls)
 from perfbench.trace import busy_union, gaps, top_by_name
 from perfbench.traffic import poisson_window
-from perfbench.util import derive_seed, log
+from perfbench.util import derive_seed, family, log
 from perfbench.weights import make_weights
+
+# a traced run fails where a worker's profile holds fewer device records
+# in its calls inside the window than this share of the launches that its
+# stages' warm calls made
+PROFILE_COMPLETE = 0.5
 
 
 class MemorySampler:
@@ -192,14 +200,23 @@ def _run(ctx, record_dir: str) -> dict:
             t0_ns = time.time_ns()
             if ctx.trace:
                 start = t0_ns + int(traffic["trace_at"] * ctx.seconds * 1e9)
-                with open(f"{record_dir}/{TRACE_FILE}", "w") as f:
-                    json.dump({"start_ns": start, "stop_ns": start + int(
-                        traffic["trace_seconds"] * 1e9)}, f)
+                trace_window = (start,
+                                start + int(traffic["trace_seconds"] * 1e9))
+                # whole or not at all: the workers' threads poll for it
+                tmp = f"{record_dir}/{TRACE_FILE}.tmp"
+                with open(tmp, "w") as f:
+                    json.dump({"start_ns": trace_window[0],
+                               "stop_ns": trace_window[1]}, f)
+                os.replace(tmp, f"{record_dir}/{TRACE_FILE}")
             stats = eng.run_trace(qs)
             t1_ns = time.time_ns()
+            # the workers stop their profiles now, outside the served trace
+            profiles = collect_profiles(record_dir) if ctx.trace else None
         finally:
             if nvml is not None:
                 nvml.__exit__()
+            if ctx.trace:               # also where the run failed
+                open(f"{record_dir}/{DONE_FILE}", "a").close()
             eng.close()
     reports = eng.worker_reports
     calls = [read_calls(record_dir, i) for i in range(len(stage_cfgs))]
@@ -222,7 +239,7 @@ def _run(ctx, record_dir: str) -> dict:
         "stage_calls": [len(w) for w in window], "batch": batch,
         "comm_frac": summary["comm_frac"],
         "compute_time_s": summary["compute_time"],
-        "query_flops": sum(counts.prefill_flops(sc, 1, seq_len)
+        "query_flops": sum(family(sc).prefill_flops(sc, 1, seq_len)
                            for sc in stage_cfgs),
         "memory_peak_bytes": int(mem.peak),
         "drain_s": max(0.0, (t1_ns - t0_ns) / 1e9 - ctx.seconds),
@@ -241,28 +258,44 @@ def _run(ctx, record_dir: str) -> dict:
         lo, hi = t0_ns, t0_ns + int(ctx.seconds * 1e9)
         obs["utilization"] = [u for t, u in nvml.samples if lo <= t <= hi]
     if ctx.trace:
-        obs.update(_profile_obs(record_dir, window))
+        obs.update(_profile_obs(record_dir, profiles, trace_window, window))
+        info["lead_in_recorded"] = obs.pop("lead_in_recorded")
+        info["profiles"] = obs.pop("profiles")
     obs["info"] = info
     # the workers are gone: the card is the reference's
     obs["checks"] = check(ctx, qs, stats, calls, window, stage_cfgs, seed)
     return obs
 
 
-def _profile_obs(record_dir: str, window) -> dict:
-    """busy_s and window_s over the span that every worker profiled, the
-    device operations that took most time there, and its idle gaps by the
-    stage calls open in each."""
-    profs = []
-    for _ in range(100):                # a worker writes after its stop
-        profs = read_profiles(record_dir)
-        if profs:
-            break
-        time.sleep(0.1)
+def _profile_obs(record_dir: str, profiles, trace_window, window) -> dict:
+    """busy_s and window_s over the span of the traced window that every
+    worker's profile covers, the device operations that took most time
+    there, and its idle gaps by the stage calls open in each.  Each
+    worker's profile must hold its work: in the worker's calls that lie
+    inside the window, at least ``PROFILE_COMPLETE`` of the device records
+    that its stages' warm calls made."""
+    w0, w1 = trace_window
+    profs = [p for p in profiles if p["events"] is not None]
     if not profs:
-        return {}
-    # the driver's window, where every worker's profile covers it
-    lo = max([profs[0]["window"][0]] + [p["start_ns"] for p in profs])
-    hi = min([profs[0]["window"][1]] + [p["stop_ns"] for p in profs])
+        raise RuntimeError("no worker profiled the traced window")
+    per_worker = []
+    for p in profs:
+        starts = sorted(s for _, s, _ in p["events"])
+        calls = [(i, c[0], c[1]) for i in range(len(window))
+                 for c in read_calls(record_dir, i, p["pid"])
+                 if w0 <= c[0] and c[1] <= w1]
+        records = sum(bisect.bisect_right(starts, t1)
+                      - bisect.bisect_left(starts, t0) for _, t0, t1 in calls)
+        launches = sum(p["launches"].get(i, 0) for i, _, _ in calls)
+        per_worker.append({"calls_in_window": len(calls),
+                           "records": records, "launches": launches})
+        if records < PROFILE_COMPLETE * launches:
+            raise RuntimeError(
+                f"worker {p['pid']}'s profile holds {records} device records "
+                f"in its {len(calls)} calls inside the window, against "
+                f"{launches} launches")
+    lo = max([w0] + [p["start_ns"] for p in profs])
+    hi = min([w1] + [p["stop_ns"] for p in profs])
     events = [e for p in profs for e in p["events"]]
     merged, busy = busy_union([(s, e) for _, s, e in events], lo, hi)
     by_label: Dict[str, float] = {}
@@ -277,7 +310,8 @@ def _profile_obs(record_dir: str, window) -> dict:
                   key=lambda kv: kv[1], reverse=True)[:10]
     return {"busy_s": busy / 1e9, "trace_window_s": max(hi - lo, 0) / 1e9,
             "device_ops": top_by_name(events, lo, hi), "idle_gaps": idle,
-            "lead_in_recorded": [p["lead_in"] for p in profs]}
+            "lead_in_recorded": [p["lead_in"] for p in profs],
+            "profiles": per_worker}
 
 
 def check(ctx, qs, stats, calls, window, stage_cfgs, seed) -> Dict:
@@ -342,7 +376,8 @@ def reference_gaps(ctx, sample, served0, where, stage1_by_input,
         stage_cfgs[0], derive_seed(seed, "weights", 0), dev,
         torch.bfloat16).items()}
     prompts = torch.from_numpy(np.stack([q.tokens for q in sample])).to(dev)
-    logits = reference.last_logits(w, stage_cfgs[0], prompts, precision)
+    logits = family(stage_cfgs[0]).last_logits(w, stage_cfgs[0], prompts,
+                                               precision)
     got = torch.tensor([served0[q.qid] for q in sample], device=dev)
     gap0 = float((logits.max(-1).values
                   - logits.gather(1, got[:, None].long())[:, 0]).max())
@@ -360,7 +395,8 @@ def reference_gaps(ctx, sample, served0, where, stage1_by_input,
         stage_cfgs[1], derive_seed(seed, "weights", 1), dev,
         torch.bfloat16).items()}
     inputs = torch.tensor(firsts, device=dev)[:, None].repeat(1, seq_len)
-    logits = reference.last_logits(w, stage_cfgs[1], inputs, precision)
+    logits = family(stage_cfgs[1]).last_logits(w, stage_cfgs[1], inputs,
+                                               precision)
     row = {t: i for i, t in enumerate(firsts)}
     idx = torch.tensor([row[served0[q.qid] % vocab1] for q in sample],
                        device=dev)

@@ -1,5 +1,7 @@
 """Training cells: ``repro_torch.training.make_train_step`` (remat, AdamW in
-place) on one decoder, a synchronous step loop.
+place) on one model, a synchronous step loop.  The config's family
+(``perfbench/families/<family>.py``) checks the port's model, lays out the
+seeded weights, counts a step's operations and is the plain reference.
 
 Set-up builds the one training step with its model (the benchmark's seeded
 weights written into the port's ``Transformer``) and its optimizer state,
@@ -24,9 +26,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from perfbench import counts, reference, util
+from perfbench import reference
 from perfbench.trace import LEAD_IN_KERNEL, busy_union, gaps, top_by_name
-from perfbench.util import derive_seed, log
+from perfbench.util import derive_seed, family, log
 from perfbench.weights import make_weights
 
 CHECK_STEPS = 3
@@ -79,8 +81,9 @@ def run(ctx) -> dict:
     vocab = cfg["vocab_size"]
     data_seed = derive_seed(seed, "data") % 2 ** 32
     wseed = derive_seed(seed, "weights", 0)
+    fam = family(cfg)
     port = get_config(cfg["arch"], reduced=ctx.reduced)
-    util.check_port_config(port, cfg)
+    fam.check_port(port, cfg)
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
     t_model = time.time()
@@ -129,7 +132,7 @@ def run(ctx) -> dict:
     steps = i - CHECK_STEPS
     obs = {"kind": "train", "setup_s": setup_s, "steps": steps,
            "window_s": window_s, "tokens": steps * b * s,
-           "enqueue_s": enqueue, "step_flops": counts.train_flops(cfg, b, s),
+           "enqueue_s": enqueue, "step_flops": fam.train_flops(cfg, b, s),
            "batch": b, "seq_len": s, "config": cfg}
     if ctx.trace:
         obs.update(_profile(lambda j: step(state, batch(j))[1]["loss"],
@@ -137,6 +140,7 @@ def run(ctx) -> dict:
     obs["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated()) \
         if dev == "cuda" else 0
     info = {"steps": steps, "window_s": window_s,
+            "lead_in_recorded": obs.get("lead_in_recorded"),
             "step_ms_mean": window_s / steps * 1e3,
             "losses_setup": losses, "last_loss": loss,
             "setup_phases_s": phases}
@@ -163,8 +167,9 @@ def reference_steps(cfg: dict, wseed: int, batches, dev,
         cfg, wseed, dev, torch.bfloat16).items()}
     tb = [{k: torch.from_numpy(v).to(dev) for k, v in bt.items()}
           for bt in batches]
-    return reference.adamw_steps(w, cfg, tb, opt_config(cfg),
-                                 torch.bfloat16, precision, rows)
+    return reference.adamw_steps(family(cfg).loss_and_grads, w, cfg, tb,
+                                 opt_config(cfg), torch.bfloat16, precision,
+                                 rows)
 
 
 def leaf_gap(prog: Dict[str, float], ref: Dict[str, float],

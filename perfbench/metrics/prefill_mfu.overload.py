@@ -1,7 +1,7 @@
 """The served model work's share of the card's bf16 peak: the operations
 of every query completed in the window (each stage's prefill of its
-prompt, counted from the config's shapes by ``perfbench.counts``), over
-the window's seconds times the peak."""
+prompt, counted from the config's shapes by its family's
+``prefill_flops``), over the window's seconds times the peak."""
 from perfbench.counts import peaks
 
 

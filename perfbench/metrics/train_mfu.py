@@ -1,7 +1,7 @@
-"""The step's model operations (``perfbench.counts.train_flops``: every
-matmul forward and backward, the head included, attention at the causal
-half, remat's recomputation left out) per second of the window, over the
-card's bf16 peak."""
+"""The step's model operations (its family's ``train_flops``, e.g.
+``perfbench/families/qwen.py``: every matmul forward and backward, the
+head included, attention at the causal half, remat's recomputation left
+out) per second of the window, over the card's bf16 peak."""
 from perfbench.counts import peaks
 
 

@@ -84,41 +84,99 @@ def test_training_readers_on_observations():
     assert bwd == pytest.approx(100 * 56 * 0.3476e-3 / 0.46, rel=0.01)
 
 
-def test_a_cell_added_as_files_needs_no_edit(tmp_path):
-    """A copy of the benchmark with one cell more, added as a cell file and
-    an entry of BENCHMARK.json: the copy's own loaders find the cell, its
-    configuration, its driver and every metric's reader."""
-    shutil.copytree(util.PKG, tmp_path / "perfbench",
+# the copy's probe: its loaders find the added cell, configuration, kind
+# and every metric's reader; with "check", the serving check runs on the
+# CPU at the port's reduced sizes (as test_bench_checks.serve_run does)
+PROBE = """
+import importlib, json, sys, time
+root, name, check = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
+sys.path.insert(0, root)
+from perfbench import util
+from perfbench.run import RunContext, cell_metrics, drive, metric_reader, result
+assert str(util.PKG).startswith(root)
+c = util.cell(name)
+cfg = util.config(c["config"])
+importlib.import_module("perfbench.kinds." + cfg["kind"])
+b = util.benchmark()
+ms = cell_metrics(b, name, 0) + cell_metrics(b, name, 1)
+[metric_reader(m["name"]) for m in ms]
+out = {"rate_qps": c["traffic"]["rate_qps"], "metrics": len(ms)}
+if check:
+    cfg["stages"] = [util.reduced(s) for s in cfg["stages"]]
+    c["traffic"].update(rate_qps=20.0, prompt_tokens=32, warmup_seconds=0.5,
+                        check_queries=16)
+    ctx = RunContext(name, c, cfg, 2 ** 31 + 777, 2.0, False, "cpu",
+                     time.time(), reduced=True)
+    res = result(ctx, drive(ctx), cell_metrics(b, name, False),
+                 {"platform": "cpu", "kind": "cpu", "count": 1,
+                  "memory_peak_bytes": 0})
+    out.update(correct=res["correct"], checks=res["checks"], families={
+        k: m.__file__ for k, m in sys.modules.items()
+        if k.startswith("perfbench.families.")})
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("added", ["traffic", "family"])
+def test_a_cell_added_as_files_needs_no_edit(tmp_path, added):
+    """A copy of the benchmark with one cell more, added as files and
+    entries of BENCHMARK.json, with no existing file edited.
+
+    - "traffic": a cell file, a new traffic mix on img-to-img: the copy's
+      own loaders find the cell, its configuration, its kind and every
+      metric's reader;
+    - "family": a new model family (a copy of ``families/qwen.py`` under
+      another name), a configuration whose stage 1 names it, and a cell
+      on it: the same, and the serving check runs on the CPU at reduced
+      size through the new family's file, and is correct."""
+    pkg = tmp_path / "perfbench"
+    shutil.copytree(util.PKG, pkg,
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((util.ROOT / "BENCHMARK.json").read_text())
     cell = util.cell("img-to-img.steady")
-    cell["traffic"] = {**cell["traffic"], "name": "steady-slow",
-                       "rate_qps": 10.0}
-    (tmp_path / "perfbench" / "workloads" / "img-to-img.slow.json").write_text(
-        json.dumps(cell))
-    bench["workloads"].append({"name": "img-to-img.slow",
-                               "config": "img-to-img",
-                               "traffic": "steady-slow", "chips": 1,
-                               "why": "a cell added as data"})
+    if added == "traffic":
+        name, config = "img-to-img.slow", "img-to-img"
+        cell["traffic"] = {**cell["traffic"], "name": "steady-slow",
+                           "rate_qps": 10.0}
+    else:
+        name, config = "img-to-img-twin.steady", "img-to-img-twin"
+        shutil.copy(pkg / "families" / "qwen.py", pkg / "families" /
+                    "qwen_twin.py")
+        cfg = json.loads((pkg / "configs" / "img-to-img.json").read_text())
+        cfg["name"] = config
+        cfg["stages"][1]["family"] = "qwen_twin"
+        (pkg / "configs" / f"{config}.json").write_text(json.dumps(cfg))
+        conf = next(c for c in bench["configs"] if c["name"] == "img-to-img")
+        bench["configs"].append({**conf, "name": config,
+                                 "file": f"perfbench/configs/{config}.json"})
+        cell["config"] = config
+    (pkg / "workloads" / f"{name}.json").write_text(json.dumps(cell))
+    bench["workloads"].append({"name": name, "config": config,
+                               "traffic": cell["traffic"]["name"],
+                               "chips": 1, "why": "a cell added as files"})
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "img-to-img.steady" in m.get("workloads", []):
-            m["workloads"].append("img-to-img.slow")
+            m["workloads"].append(name)
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    probe = (
-        "import sys, importlib; sys.path.insert(0, sys.argv[1]);"
-        "from perfbench import util; from perfbench.run import "
-        "cell_metrics, metric_reader;"
-        "assert str(util.PKG).startswith(sys.argv[1]);"
-        "c = util.cell('img-to-img.slow'); cfg = util.config(c['config']);"
-        "importlib.import_module('perfbench.kinds.' + cfg['kind']);"
-        "b = util.benchmark();"
-        "ms = cell_metrics(b, 'img-to-img.slow', 0) + "
-        "cell_metrics(b, 'img-to-img.slow', 1);"
-        "[metric_reader(m['name']) for m in ms];"
-        "print(c['traffic']['rate_qps'], len(ms))")
-    out = subprocess.run([sys.executable, "-c", probe, str(tmp_path)],
-                         capture_output=True, text=True, timeout=120,
-                         env={"PYTHONPATH": str(util.ROOT / "src"),
-                              "PATH": "/usr/bin:/bin"})
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["10.0", "7"]
+    for path in util.PKG.rglob("*"):          # nothing there was edited
+        if path.is_file() and "__pycache__" not in path.parts and \
+                "tests" not in path.relative_to(util.PKG).parts:
+            assert (pkg / path.relative_to(util.PKG)).read_bytes() == \
+                path.read_bytes(), path
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE, str(tmp_path), name,
+         "1" if added == "family" else "0"],
+        capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": str(util.ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    assert got["metrics"] == 7
+    if added == "traffic":
+        assert got["rate_qps"] == 10.0
+        return
+    assert got["correct"], got["checks"]
+    assert got["checks"]["checked_queries"]["value"] > 0
+    assert got["families"] == {
+        "perfbench.families.qwen": str(pkg / "families" / "qwen.py"),
+        "perfbench.families.qwen_twin": str(pkg / "families" /
+                                            "qwen_twin.py")}

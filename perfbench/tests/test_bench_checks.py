@@ -14,15 +14,13 @@ import pytest
 from perfbench import util
 from perfbench.run import RunContext, cell_metrics, drive, result
 
-from conftest import reduced_decoder
-
 DEVICE = {"platform": "cpu", "kind": "cpu", "count": 1,
           "memory_peak_bytes": 0}
 
 
 def serve_run(fault=None):
     cfg = util.config("img-to-img")
-    cfg["stages"] = [reduced_decoder(s) for s in cfg["stages"]]
+    cfg["stages"] = [util.reduced(s) for s in cfg["stages"]]
     cell = util.cell("img-to-img.steady")
     cell["traffic"].update(rate_qps=20.0, prompt_tokens=32,
                            warmup_seconds=0.5, check_queries=16)
@@ -34,7 +32,7 @@ def serve_run(fault=None):
 
 
 def train_run():
-    cfg = reduced_decoder(util.config("qwen3-0.6b"))
+    cfg = util.reduced(util.config("qwen3-0.6b"))
     cell = util.cell("qwen3-0.6b.train")
     cell["traffic"].update(batch=4, seq_len=64)
     ctx = RunContext("qwen3-0.6b.train", cell, cfg, 2 ** 31 + 54321, 1.0,

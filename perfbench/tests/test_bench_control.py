@@ -10,8 +10,6 @@ import torch
 from perfbench import reference, util
 from perfbench.weights import make_weights
 
-from conftest import reduced_decoder
-
 
 def test_fp8_rounding():
     x = torch.tensor([0.0, 1.0, -3.0, 448.0, 1e-3])
@@ -24,13 +22,14 @@ def test_fp8_rounding():
 
 
 def test_fp8_control_departs_more_than_bf16_on_the_cpu():
-    cfg = reduced_decoder(util.config("img-to-img")["stages"][0])
+    cfg = util.reduced(util.config("img-to-img")["stages"][0])
     w = make_weights(cfg, 21, "cpu", torch.bfloat16)
     w = {k: t.float() for k, t in w.items()}
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg["vocab_size"], (16, 64)).astype(np.int32))
-    ref = reference.last_logits(w, cfg, tokens, "fp32")
-    low = reference.last_logits(w, cfg, tokens, "fp8")
+    last_logits = util.family(cfg).last_logits
+    ref = last_logits(w, cfg, tokens, "fp32")
+    low = last_logits(w, cfg, tokens, "fp8")
     assert float((low - ref).abs().max()) > 1e-3
 
 

@@ -38,3 +38,14 @@ def test_the_check_compares_whole_names(monkeypatch):
 def test_the_reference_imports_nothing_of_the_program():
     for name in ("reference.py", "weights.py", "counts.py", "traffic.py"):
         assert "repro_torch" not in set(top_names(util.PKG / name))
+
+
+FAMILIES = sorted((util.PKG / "families").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", FAMILIES, ids=lambda p: p.name)
+def test_a_family_imports_nothing_of_the_program(path):
+    """A family file is the yardstick of its models: neither JAX nor the
+    program that it judges (``test_no_jax`` covers it as well)."""
+    assert path in FILES
+    assert not set(top_names(path)) & (util.FORBIDDEN | {"repro_torch"})

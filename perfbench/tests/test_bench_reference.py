@@ -1,6 +1,7 @@
-"""The plain reference against the port on the CPU at the port's reduced
-sizes, both in fp32 from the same seeded weights: the prefill's last
-logits, the training loss and gradients, and AdamW's first steps."""
+"""The plain reference (each config's family, ``perfbench/families/``)
+against the port on the CPU at the port's reduced sizes, both in fp32 from
+the same seeded weights: the prefill's last logits, the training loss and
+gradients, and AdamW's first steps."""
 import numpy as np
 import pytest
 import torch
@@ -9,10 +10,8 @@ from perfbench import reference, util
 from perfbench.kinds.train import make_batch, opt_config
 from perfbench.weights import make_weights, names_and_shapes
 
-from conftest import reduced_decoder
-
-STAGES = [reduced_decoder(s) for s in util.config("img-to-img")["stages"]]
-TRAIN = reduced_decoder(util.config("qwen3-0.6b"))
+STAGES = [util.reduced(s) for s in util.config("img-to-img")["stages"]]
+TRAIN = util.reduced(util.config("qwen3-0.6b"))
 
 
 def port_model(cfg, seed, dtype=torch.float32):
@@ -51,7 +50,7 @@ def test_prefill_logits(stage):
         0, cfg["vocab_size"], (3, 40)).astype(np.int32))
     with torch.no_grad():
         got, _ = port_model(cfg, 11).serve_prefill(tokens)
-    want = reference.last_logits(ref_weights(cfg, 11), cfg, tokens)
+    want = util.family(cfg).last_logits(ref_weights(cfg, 11), cfg, tokens)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
@@ -65,7 +64,7 @@ def test_training_loss_and_gradients():
     loss = m.forward_train(torch.from_numpy(bt["tokens"]),
                            torch.from_numpy(bt["labels"]), remat=True)
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-    rloss, rgrads = reference.loss_and_grads(
+    rloss, rgrads = util.family(cfg).loss_and_grads(
         ref_weights(cfg, 13), cfg, torch.from_numpy(bt["tokens"]),
         torch.from_numpy(bt["labels"]))
     assert float(loss) == pytest.approx(rloss, rel=1e-5)
@@ -107,7 +106,8 @@ def test_adamw_steps(store):
     w = {n: t.to(store).float() for n, t in w.items()}
     start = {n: t.clone() for n, t in w.items()}
     tb = [{k: torch.from_numpy(v) for k, v in bt.items()} for bt in batches]
-    out = reference.adamw_steps(w, cfg, tb, opt, store)
+    out = reference.adamw_steps(util.family(cfg).loss_and_grads, w, cfg, tb,
+                                opt, store)
     if store == torch.float32:
         # elements whose gradient is near Adam's eps may turn either way:
         # held by the norm of the leaf's difference against its change

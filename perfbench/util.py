@@ -1,13 +1,16 @@
-"""Small helpers shared by the harness: paths, seeds, logging, the process's
-start time, cache directories and the check that no JAX module is loaded."""
+"""Small helpers shared by the harness: paths, the loaders of configurations
+and model families, seeds, logging, the process's start time, cache
+directories and the check that no JAX module is loaded."""
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import json
 import os
 import sys
 import time
 from pathlib import Path
+from types import ModuleType
 from typing import Mapping
 
 PKG = Path(__file__).resolve().parent
@@ -15,6 +18,9 @@ ROOT = PKG.parent
 # top-level module names the harness's process may not hold once the window
 # has closed: JAX, its libraries and the JAX package this repo ports
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "repro"})
+# what every model family's file defines (``perfbench/families/qwen.py``)
+FAMILY_API = ("weight_groups", "check_port", "last_logits", "loss_and_grads",
+              "prefill_flops", "train_flops", "reduced")
 
 
 def load_json(path: Path) -> dict:
@@ -22,8 +28,54 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
+def load_config(path: Path) -> dict:
+    """A configuration file; raises, naming the file, unless each model it
+    describes (each of its ``stages``, or the file itself) names its
+    ``family``."""
+    cfg = load_json(path)
+    for m in cfg.get("stages", [cfg]):
+        if not isinstance(m.get("family"), str):
+            raise ValueError(f"{path}: the model {m.get('arch')!r} names no "
+                             f"\"family\"")
+    return cfg
+
+
 def config(name: str) -> dict:
-    return load_json(PKG / "configs" / f"{name}.json")
+    return load_config(PKG / "configs" / f"{name}.json")
+
+
+def load_family(path: Path) -> ModuleType:
+    """The model family's module at ``path`` (imported once a process);
+    raises, naming the file and the functions, unless it defines every
+    function of ``FAMILY_API``."""
+    key = f"perfbench.families.{path.stem.replace('.', '_')}"
+    mod = sys.modules.get(key)
+    if mod is not None and mod.__file__ == str(path):
+        return mod
+    if not path.is_file():
+        raise ValueError(f"no model family file {path}")
+    spec = importlib.util.spec_from_file_location(key, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    missing = [f for f in FAMILY_API if not callable(getattr(mod, f, None))]
+    if missing:
+        raise ValueError(f"{path}: a model family lacks {missing}")
+    sys.modules[key] = mod
+    return mod
+
+
+def family(cfg: Mapping) -> ModuleType:
+    """The family module that a model's config (a stage's entry or a
+    training config) names: ``perfbench/families/<family>.py``.  The
+    benchmark's config chooses it, never the program."""
+    return load_family(PKG / "families" / f"{cfg['family']}.py")
+
+
+def reduced(cfg: Mapping) -> dict:
+    """``cfg`` (a stage's entry or a training config) at the port's reduced
+    sizes of its ``arch``, every option kept: the CPU tests' model."""
+    from repro_torch.configs import get_config
+    return family(cfg).reduced(cfg, get_config(cfg["arch"], reduced=True))
 
 
 def cell(name: str) -> dict:
@@ -78,25 +130,3 @@ def forbidden_loaded() -> list:
     (``repro_torch`` is not ``repro``)."""
     return sorted({m.split(".", 1)[0] for m in list(sys.modules)}
                   & FORBIDDEN)
-
-
-def check_port_config(port, cfg: Mapping) -> None:
-    """Raise unless the port's ``ModelConfig`` ``port`` runs the widths,
-    depth and options that the benchmark's config ``cfg`` states."""
-    pairs = {
-        "hidden_size": port.d_model, "intermediate_size": port.d_ff,
-        "num_hidden_layers": port.num_layers,
-        "num_attention_heads": port.num_heads,
-        "num_key_value_heads": port.num_kv_heads,
-        "head_dim": port.resolved_head_dim, "vocab_size": port.vocab_size,
-        "rope_theta": port.rope_theta, "rms_norm_eps": port.norm_eps,
-        "tie_word_embeddings": port.tie_embeddings,
-        "attention_bias": port.qkv_bias, "qk_norm": port.qk_norm}
-    bad = {k: (cfg[k], v) for k, v in pairs.items() if cfg[k] != v}
-    if tuple(port.block_pattern) != ("attn",) or \
-            tuple(port.mlp_pattern) != ("dense",) or not port.rope or \
-            port.sliding_window is not None or not port.causal:
-        bad["layers"] = "not a causal RoPE attention + dense MLP decoder"
-    if bad:
-        raise ValueError(f"{port.name}: the port runs another model than "
-                         f"the config states (config, port): {bad}")
