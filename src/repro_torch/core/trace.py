@@ -46,6 +46,8 @@ The spans of a served query, by where they are stamped:
 ``resolve``      the worker: the task's input mapped onto the stage's
                  device
 ``enqueue``      the stage server: the host's dispatch of the call
+``encode``       the model, inside ``enqueue``: the host's dispatch of an
+                 encoder-decoder's encoder (``Transformer.serve_prefill``)
 ``sync``         the stage server: the wait on the device
 ``publish``      the worker: the output handed to its consumers
 ``from_worker``  the driver: the completion put -> folded by the driver

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, CROSS, MAMBA, MLSTM, SLSTM,
                                      ModelConfig)
+from repro_torch.core import trace as tracing
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -409,7 +410,9 @@ class Transformer(nn.Module):
         Returns (last-token logits (B, V), ModelCache with pos = S).  An
         encoder-decoder model needs ``frames`` (B, S_enc, d): the encoder
         runs once, and each CROSS layer's K/V of its output go to the
-        cache's ``cross``.  ``attention``, ``mlstm`` and ``ssm`` replace
+        cache's ``cross``; under the process's tracer
+        (``core.trace.PROCESS``), when it is on, the encoder's dispatch is
+        an ``encode`` span.  ``attention``, ``mlstm`` and ``ssm`` replace
         the attention op (every call: the encoder's, the self- and the
         cross-attention), the mLSTM chunk op and the selective-scan op
         (same signatures as ``ops.flash_attention``, ``ops.mlstm_chunk``
@@ -424,7 +427,14 @@ class Transformer(nn.Module):
         positions = torch.arange(s, device=tokens.device)[None]
         caches = self.init_cache(b, cache_len if cache_len is not None
                                  else s)
-        enc_out = None if frames is None else self.encode(frames, attention)
+        enc_out = None
+        if frames is not None:
+            tr = tracing.PROCESS
+            if tr.on:
+                t0 = tr.now()
+            enc_out = self.encode(frames, attention)
+            if tr.on:
+                tr.span("encode", t0, tr.now())
         h = self.embed_tokens(tokens, positions)
         new_caches, cross = [], []
         for p, (kind, mlp_kind), cache in zip(self.layers, self.kinds,

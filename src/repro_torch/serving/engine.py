@@ -136,7 +136,9 @@ class ModelStageServer:
     def _run(self, tokens: torch.Tensor) -> torch.Tensor:
         """The ids of one call.  Under the process's tracer, when it is on,
         the host's dispatch of the call (up to the recorded event) is its
-        ``enqueue`` span and the wait on the card its ``sync``."""
+        ``enqueue`` span and the wait on the card its ``sync``; an
+        encoder-decoder's prefill stamps its encoder's dispatch, inside
+        ``enqueue``, as ``encode``."""
         cfg = self.cfg
         tr = tracing.PROCESS
         if tr.on:

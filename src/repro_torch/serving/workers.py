@@ -46,9 +46,9 @@ worker, so a driver can show that the kernels ran in the workers.  With
 ``trace`` on, a worker turns on its process's tracer
 (``repro_torch.core.trace.PROCESS``) once it has warmed up, and records
 each task's ``to_worker``, ``resolve`` and ``publish`` spans; its stage
-servers record ``enqueue`` and ``sync`` under the task's ids.  On the card
-it first counts the device kernels of a warm call of each stage
-(``launches_per_call``).
+servers record ``enqueue`` and ``sync`` (and an encoder-decoder's
+``encode``) under the task's ids.  On the card it first counts the device
+kernels of a warm call of each stage (``launches_per_call``).
 """
 from __future__ import annotations
 

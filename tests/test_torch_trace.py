@@ -3,7 +3,8 @@ query's spans on the processes backend, from its due time to its
 completion, joined across the driver and its workers; the tracer off
 reads no clock and keeps nothing, and serves the same outputs; a span and
 ``torch.profiler``'s records share one clock; the training step's three
-spans, with the losses of the untraced step."""
+spans, with the losses of the untraced step; an encoder-decoder stage's
+``encode`` span."""
 import collections
 import json
 import time
@@ -239,3 +240,36 @@ def test_a_traced_training_step_records_its_three_spans():
     for k, (t0, t1) in enumerate(calls):
         a, b, c = spans[3 * k: 3 * k + 3]
         assert t0 <= a[1] <= a[2] == b[1] <= b[2] == c[1] <= c[2] <= t1
+
+
+def test_a_whisper_call_records_one_encode_inside_its_enqueue():
+    """With the process's tracer on, one call of a reduced whisper stage
+    records exactly one ``encode`` inside its ``enqueue``, under the
+    call's ids; with it off, the same call records nothing and serves the
+    same ids."""
+    st = serving.ModelStageServer("text-translation", "whisper-medium", 16,
+                                  reduced=True, device="cpu",
+                                  dtype=torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, st.cfg.vocab_size, (3, 16)).astype(np.int32))
+    tr = trace.PROCESS
+    assert not tr.on
+    off = st.process(tokens)
+    assert tr.take() == {"spans": [], "counters": []}
+    ids = {"ti": 0, "stage": 1, "fid": 5}
+    tr.enable()
+    try:
+        tr.ids = ids
+        on = st.process(tokens)
+        spans = tr.take()["spans"]
+    finally:
+        tr.on, tr.ids = False, {}
+    assert torch.equal(on, off)
+    by = collections.defaultdict(list)
+    for s in spans:
+        by[s[0]].append(s)
+    assert {k: len(v) for k, v in by.items()} == \
+        {"enqueue": 1, "encode": 1, "sync": 1}
+    (enq,), (enc,) = by["enqueue"], by["encode"]
+    assert enq[1] <= enc[1] <= enc[2] <= enq[2]
+    assert all(s[3] == ids for s in spans)
